@@ -1,0 +1,108 @@
+"""IGSO(3) log-density + score: the hand-written CUDA kernel and its wrapper.
+
+Replaces ``diffusion_extensions_tpu/ops/igso3_pallas.py``
+(``igso3_logpdf_score_pallas``).  The kernel source is
+``csrc/igso3_logpdf_score.cu``; it is compiled with ``nvcc`` for sm_90a into a
+shared library with a plain C interface at first use (into ``build/`` beside
+this package, keyed by the source's hash) and called through ``ctypes`` on
+PyTorch's current stream.
+
+``igso3_logpdf_score(t, sigma)`` takes the plain PyTorch version
+(``igso3_logpdf_score_ref``) only for tensors on the CPU.  A CUDA tensor
+launches the kernel or raises.  ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+__all__ = ["igso3_logpdf_score", "igso3_logpdf_score_ref", "build"]
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "igso3_logpdf_score.cu"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+launches = 0  # kernel launches since import (or the caller's last reset)
+build_log = ""  # nvcc's output of the last build made in this process
+_fn = None
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the IGSO(3) CUDA kernel cannot be built")
+
+
+def build():
+    """Compile the kernel (if this source was not built before) and bind it."""
+    global _fn, build_log
+    if _fn is not None:
+        return _fn
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"libigso3_logpdf_score_{digest}.so"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.igso3_logpdf_score_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _fn = fn
+    return fn
+
+
+def igso3_logpdf_score_ref(t: torch.Tensor, sigma: torch.Tensor):
+    """Plain PyTorch version: (igso3_log_density, igso3_score_angle)."""
+    from .igso3 import igso3_log_density, igso3_score_angle
+
+    return igso3_log_density(t, sigma), igso3_score_angle(t, sigma)
+
+
+def igso3_logpdf_score(t: torch.Tensor, sigma: torch.Tensor):
+    """Fused (log f(t; sigma), d/dt log f(t; sigma)); ``t`` and ``sigma``
+    broadcast.  CPU tensors take the plain version; CUDA tensors the kernel."""
+    global launches
+    t, sigma = torch.broadcast_tensors(t, sigma)
+    if t.device.type == "cpu" and sigma.device.type == "cpu":
+        return igso3_logpdf_score_ref(t, sigma)
+    if t.device.type != "cuda" or sigma.device != t.device:
+        raise ValueError(
+            f"igso3_logpdf_score: t on {t.device}, sigma on {sigma.device}; "
+            "both must be on the same CUDA device (or both on the CPU)"
+        )
+    if t.dtype != torch.float32 or sigma.dtype != torch.float32:
+        raise TypeError(
+            f"igso3_logpdf_score takes float32, got {t.dtype} and {sigma.dtype}"
+        )
+    t = t.contiguous()
+    sigma = sigma.contiguous()
+    logf = torch.empty_like(t)
+    score = torch.empty_like(t)
+    if t.numel() == 0:
+        return logf, score
+    fn = build()
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        err = fn(t.data_ptr(), sigma.data_ptr(), logf.data_ptr(),
+                 score.data_ptr(), t.numel(), stream)
+    if err != 0:
+        raise RuntimeError(f"igso3_logpdf_score kernel launch failed: cudaError {err}")
+    launches += 1
+    return logf, score
