@@ -1,19 +1,26 @@
-"""Weights of the JAX package's flax ``PlaneNet`` -> the port's ``PlaneNet``.
+"""Weights of the JAX package's flax models -> the port's modules.
 
-``planenet_params_from_flax(params_np)`` takes the flax parameter tree as
+``planenet_params_from_flax(params_np)`` and
+``rot_predict_params_from_flax(params_np)`` take a flax parameter tree as
 nested dicts of numpy arrays (with or without the top-level ``"params"``
-key) and returns a state dict for ``models.planenet.PlaneNet``.  flax
-``Dense`` kernels are (in, out) and are transposed for ``nn.Linear``; the
-attention q/k/v kernels are (dim, heads, head_dim) with (heads, head_dim)
-biases, the output kernel (heads, head_dim, dim).  Any missing, extra or
-mis-shaped leaf raises.
+key) and return a state dict for ``models.planenet.PlaneNet`` or
+``models.rot_predict.RotPredict``; the ``*_config_from_flax`` functions give
+the constructor arguments.  flax ``Dense`` kernels are (in, out) and are
+transposed for ``nn.Linear``; the attention q/k/v kernels are (dim, heads,
+head_dim) with (heads, head_dim) biases, the output kernel (heads, head_dim,
+dim).  Any missing, extra or mis-shaped leaf raises.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["planenet_params_from_flax", "planenet_config_from_flax"]
+__all__ = [
+    "planenet_params_from_flax",
+    "planenet_config_from_flax",
+    "rot_predict_params_from_flax",
+    "rot_predict_config_from_flax",
+]
 
 _ENC = "TransformerEncoder_0"
 _MHA = "MultiHeadDotProductAttention_0"
@@ -108,19 +115,61 @@ def _expected_shapes(dim: int, heads: int, layers: int, dff: int = 2048) -> dict
     return s
 
 
-def planenet_params_from_flax(params_np) -> dict[str, torch.Tensor]:
-    """State dict for ``PlaneNet(**planenet_config_from_flax(params_np))``."""
-    cfg = planenet_config_from_flax(params_np)
+def _convert(name: str, params_np, expected: dict, mapping: dict) -> dict[str, torch.Tensor]:
+    """Check the tree's leaves against ``expected`` shapes, then map them."""
     leaves = _flatten(_unwrap(params_np))
-    expected = _expected_shapes(cfg["dim"], cfg["heads"], cfg["layers"])
     missing = sorted(set(expected) - set(leaves))
     extra = sorted(set(leaves) - set(expected))
     if missing or extra:
-        raise ValueError(f"flax PlaneNet tree: missing {missing}, extra {extra}")
+        raise ValueError(f"flax {name} tree: missing {missing}, extra {extra}")
     bad = {k: (leaves[k].shape, v) for k, v in expected.items() if leaves[k].shape != v}
     if bad:
-        raise ValueError(f"flax PlaneNet tree: mis-shaped leaves (got, want): {bad}")
+        raise ValueError(f"flax {name} tree: mis-shaped leaves (got, want): {bad}")
     out = {}
-    for path, (key, fn) in _mapping(cfg["layers"]).items():
+    for path, (key, fn) in mapping.items():
         out[key] = torch.tensor(np.ascontiguousarray(fn(leaves[path]), dtype=np.float32))
     return out
+
+
+def planenet_params_from_flax(params_np) -> dict[str, torch.Tensor]:
+    """State dict for ``PlaneNet(**planenet_config_from_flax(params_np))``."""
+    cfg = planenet_config_from_flax(params_np)
+    expected = _expected_shapes(cfg["dim"], cfg["heads"], cfg["layers"])
+    return _convert("PlaneNet", params_np, expected, _mapping(cfg["layers"]))
+
+
+def rot_predict_config_from_flax(params_np) -> dict:
+    """(d_model, out_type, variant) of a flax RotPredict parameter tree: the
+    "resnet" variant has ``ResMLPBlock_i`` leaves and one top-level Dense,
+    the "mlp" variant five top-level Dense layers."""
+    p = _unwrap(params_np)
+    try:
+        resnet = "ResMLPBlock_0" in p
+        d_model = int(np.shape(p["Dense_0"]["kernel"])[0])
+        head = "Dense_0" if resnet else "Dense_4"
+        d_out = int(np.shape(p[head]["kernel"])[1])
+    except (KeyError, TypeError, IndexError) as e:
+        raise ValueError(f"not a flax RotPredict parameter tree: {e!r}") from None
+    if d_out not in (3, 6):
+        raise ValueError(f"flax RotPredict tree: head width {d_out}, expected 3 or 6")
+    return {"d_model": d_model, "out_type": "skewvec" if d_out == 3 else "rotmat",
+            "variant": "resnet" if resnet else "mlp"}
+
+
+def rot_predict_params_from_flax(params_np) -> dict[str, torch.Tensor]:
+    """State dict for ``RotPredict(**rot_predict_config_from_flax(params_np))``."""
+    cfg = rot_predict_config_from_flax(params_np)
+    d, d_out = cfg["d_model"], 3 if cfg["out_type"] == "skewvec" else 6
+    if cfg["variant"] == "resnet":
+        hidden = [(f"ResMLPBlock_{i}/Dense_0", f"hidden.{i}.lin") for i in range(6)]
+        head = "Dense_0"
+    else:
+        hidden = [(f"Dense_{i}", f"hidden.{i}") for i in range(4)]
+        head = "Dense_4"
+    expected, mapping = {}, {}
+    for src, dst in hidden:
+        expected.update({f"{src}/kernel": (d, d), f"{src}/bias": (d,)})
+        mapping.update(_dense(src, dst))
+    expected.update({f"{head}/kernel": (d, d_out), f"{head}/bias": (d_out,)})
+    mapping.update(_dense(head, "out"))
+    return _convert("RotPredict", params_np, expected, mapping)

@@ -19,6 +19,7 @@ __all__ = [
     "dense",
     "SinusoidalPosEmb",
     "Siren",
+    "ResMLPBlock",
     "PoolRN",
     "TransformerEncoderLayer",
     "TransformerEncoder",
@@ -68,6 +69,18 @@ class Siren(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.post(torch.sin(self.lin(x)))
+
+
+class ResMLPBlock(nn.Module):
+    """x + silu(Linear(x)), the reference's ``ResLayer(Sequential(Linear,
+    SiLU))``."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.lin = dense(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + torch.nn.functional.silu(self.lin(x))
 
 
 class PoolRN(nn.Module):

@@ -10,6 +10,8 @@
   trapezoid CDF, rational-cubic quantile table).
 * ``IGSO3Table``: per-noise-level CDF and quantile tables, built once;
   sampling is two point gathers and a lerp.
+* ``Bingham``: the Bingham experiment's target, a projected Gaussian on the
+  quaternion 3-sphere.
 
 Density (``var = sigma**2``):
 
@@ -40,6 +42,7 @@ __all__ = [
     "build_inv_cdf_np",
     "IGSO3Table",
     "IsotropicGaussianSO3",
+    "Bingham",
 ]
 
 _PI = math.pi
@@ -384,3 +387,30 @@ class IsotropicGaussianSO3:
         angle = rotation_angle(rotations)
         logf, _ = igso3_logpdf_score(angle, self.eps)
         return logf
+
+
+@dataclass(frozen=True)
+class Bingham:
+    """Zero-mean Gaussian on R^4 with its samples L2-normalised onto the
+    quaternion 3-sphere.  It keeps the reference's name and semantics: this
+    is a projected Gaussian, not a true Bingham density."""
+
+    scale_tril: torch.Tensor  # (4, 4) Cholesky factor of the covariance
+
+    @classmethod
+    def create(cls, covariance_matrix, device=None) -> "Bingham":
+        """The float32 Cholesky factor, computed on the CPU (so every device
+        gets the same factor) and moved to ``device``."""
+        cov = torch.as_tensor(np.asarray(covariance_matrix, dtype=np.float32))
+        return cls(scale_tril=torch.linalg.cholesky(cov).to(resolve_device(device)))
+
+    def from_normal(self, z: torch.Tensor) -> torch.Tensor:
+        """Unit quaternions (..., 4) from standard normal draws ``z`` (..., 4)."""
+        vals = torch.matmul(z, self.scale_tril.T)
+        return vals / torch.linalg.norm(vals, dim=-1, keepdim=True)
+
+    def sample(self, generator, sample_shape=()) -> torch.Tensor:
+        """Unit quaternions (*sample_shape, 4), real part first."""
+        z = torch.randn((*sample_shape, 4), generator=generator,
+                        device=self.scale_tril.device, dtype=self.scale_tril.dtype)
+        return self.from_normal(z)

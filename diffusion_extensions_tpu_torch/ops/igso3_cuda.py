@@ -2,9 +2,8 @@
 
 Replaces ``diffusion_extensions_tpu/ops/igso3_pallas.py``
 (``igso3_logpdf_score_pallas``).  The kernel source is
-``csrc/igso3_logpdf_score.cu``; it is compiled with ``nvcc`` for sm_90a into a
-shared library with a plain C interface at first use (into ``build/`` beside
-this package, keyed by the source's hash) and called through ``ctypes`` on
+``csrc/igso3_logpdf_score.cu``; ``_build.build_library`` compiles it with
+``nvcc`` for sm_90a at first use, and it is called through ``ctypes`` on
 PyTorch's current stream.
 
 ``igso3_logpdf_score(t, sigma)`` takes the plain PyTorch version
@@ -14,53 +13,27 @@ launches the kernel or raises.  ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from ._build import CSRC, build_library
+
 __all__ = ["igso3_logpdf_score", "igso3_logpdf_score_ref", "build"]
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "igso3_logpdf_score.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = CSRC / "igso3_logpdf_score.cu"
 
 launches = 0  # kernel launches since import (or the caller's last reset)
 build_log = ""  # nvcc's output of the last build made in this process
 _fn = None
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the IGSO(3) CUDA kernel cannot be built")
-
-
 def build():
-    """Compile the kernel (if this source was not built before) and bind it."""
+    """Compile the kernel (if this source was not built before) and bind it.
+    ``-fmad=false``: see the note in the source."""
     global _fn, build_log
     if _fn is not None:
         return _fn
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libigso3_logpdf_score_{digest}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib, build_log = build_library(SOURCE, ("-fmad=false",))
     fn = lib.igso3_logpdf_score_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int

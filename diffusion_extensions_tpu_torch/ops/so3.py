@@ -21,7 +21,11 @@ __all__ = [
     "rmat_to_aa",
     "so3_lerp",
     "so3_scale",
+    "rmat2six",
+    "six2rmat",
+    "quat_to_rmat",
     "euler_to_rmat",
+    "orthogonalise",
     "haar_rotations",
 ]
 
@@ -157,6 +161,43 @@ def so3_scale(rmat: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     return exp_skewvec(log_rmat_vec(rmat) * scalars[..., None])
 
 
+def rmat2six(x: torch.Tensor) -> torch.Tensor:
+    """First two rows flattened: the 6D rotation representation."""
+    return x[..., :2, :].reshape(*x.shape[:-2], 6)
+
+
+def six2rmat(x: torch.Tensor) -> torch.Tensor:
+    """Gram-Schmidt reconstruction from the 6D representation (rows b1, b2,
+    b1 x b2)."""
+    a1, a2 = x[..., :3], x[..., 3:6]
+    b1 = a1 / torch.clamp(torch.linalg.norm(a1, dim=-1, keepdim=True), min=_EPS)
+    b2 = a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1
+    b2 = b2 / torch.clamp(torch.linalg.norm(b2, dim=-1, keepdim=True), min=_EPS)
+    return torch.stack((b1, b2, torch.linalg.cross(b1, b2, dim=-1)), dim=-2)
+
+
+def quat_to_rmat(quaternions: torch.Tensor) -> torch.Tensor:
+    """Real-first quaternion (r, i, j, k) -> rotation matrix; the input
+    need not be unit (it is divided by its squared norm)."""
+    r, i, j, k = (quaternions[..., n] for n in range(4))
+    two_s = 2.0 / torch.sum(quaternions * quaternions, dim=-1)
+    o = torch.stack(
+        (
+            1 - two_s * (j * j + k * k),
+            two_s * (i * j - k * r),
+            two_s * (i * k + j * r),
+            two_s * (i * j + k * r),
+            1 - two_s * (i * i + k * k),
+            two_s * (j * k - i * r),
+            two_s * (i * k - j * r),
+            two_s * (j * k + i * r),
+            1 - two_s * (i * i + j * j),
+        ),
+        dim=-1,
+    )
+    return o.reshape(*quaternions.shape[:-1], 3, 3)
+
+
 def euler_to_rmat(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """XYZ Euler composition R = Rz @ Ry @ Rx, with the JAX package's (and
     its reference's) convention R_y[2, 0] = +sin(y)."""
@@ -185,6 +226,19 @@ def euler_to_rmat(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Te
         dim=-1,
     )
     return o.reshape(*x.shape, 3, 3)
+
+
+def orthogonalise(mat: torch.Tensor) -> torch.Tensor:
+    """SVD re-orthogonalisation of the leading 3x3 block with the singular
+    values rounded to integers (so a near-rotation maps to U V^T); columns
+    past the third are kept."""
+    u, s, vh = torch.linalg.svd(mat[..., :3, :3], full_matrices=False)
+    core = u @ (torch.round(s)[..., :, None] * vh)
+    if mat.shape[-1] == 3:
+        return core
+    out = mat.clone()
+    out[..., :3, :3] = core
+    return out
 
 
 def haar_rotations(
