@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from the sources in this checkout (one
-nvcc per source, all started together), holds each against its plain
-PyTorch version on the card, then drives two paths at full size, each with
-the kernels' launch counts set to 0 just before it and read just after:
+nvcc per source, all started together; prints what ptxas says of each and,
+where cuobjdump is there, the SASS instruction counts), holds each against
+its plain PyTorch version on the card, then drives two paths at full size,
+each with the kernels' launch counts set to 0 just before it and read just
+after:
 
 * the aircraft sampling path (PlaneNet dim 512 / 4 heads / 4 layers, random
   weights from a seed, batch 32 x 256 points, ProjectedSO3Diffusion with
@@ -46,7 +48,7 @@ from diffusion_extensions_tpu_torch.experiments.aircraft import subsample_points
 from diffusion_extensions_tpu_torch.models.planenet import PlaneNet
 from diffusion_extensions_tpu_torch.models.projections import PointCloudProj
 from diffusion_extensions_tpu_torch.models.rot_predict import RotPredict
-from diffusion_extensions_tpu_torch.ops import igso3_cuda, mmd_cuda
+from diffusion_extensions_tpu_torch.ops import _build, igso3_cuda, mmd_cuda
 from diffusion_extensions_tpu_torch.ops.igso3 import IsotropicGaussianSO3, igso3_log_density
 from diffusion_extensions_tpu_torch.ops.metrics import mmd
 from diffusion_extensions_tpu_torch.ops.so3 import exp_skewvec, quat_to_rmat, rotation_angle
@@ -55,9 +57,11 @@ from diffusion_extensions_tpu_torch.processes.so3 import ProjectedSO3Diffusion, 
 # H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# IGSO(3) kernel, per element: two f32 loads + two f32 stores, and ~90 f32
-# operations counting each exp/log/sin/tan/sinh/cosh as one
-IGSO3_BYTES, IGSO3_OPS = 16, 90
+# IGSO(3) kernel, per element: two f32 loads + two f32 stores (one load when
+# sigma is a single value), and the plain version's 89 f32 operations, each
+# exp/log/sin/tan/sinh/cosh counted as one: 35 for the wrapped-image terms A
+# and A', 27 for the log-density, 27 for the score (itemised in the source)
+IGSO3_BYTES, IGSO3_BYTES_ONE_SIGMA, IGSO3_OPS = 16, 12, 89
 # MMD kernel: 36 bytes a rotation read once, 4 bytes out; per pair 67 f32
 # operations, what the kernel body executes: the four bilinears' 27 FMA (the
 # trace 9, each skew component 6) count 54; sx^2 + sy^2 + sz^2 5, sqrt 1, its
@@ -68,6 +72,7 @@ MMD_BYTES_PER_ROT, MMD_OPS_PER_PAIR = 36, 67
 LOGF_TOL = (1e-5, 1e-5)  # rtol, atol
 SCORE_TOL = (1e-4, 5e-4)
 MMD_SUM_RTOL = 1e-4
+MMD_SWEEP_RTOL = 1e-5  # one X against rotations at theta dense on [0, pi]
 MMD_TOL = (1e-3, 1e-5)
 PATH = dict(dim=512, heads=4, layers=4, batch=32, samples=256, timesteps=1000,
             heun_steps=50, log_prob_n=50_000)
@@ -123,8 +128,8 @@ def time_graph(fn, reps: int = 100, replays: int = 10) -> float:
     return start.elapsed_time(end) / (replays * reps)
 
 
-def igso3_bound_ms(n: int) -> tuple[float, str]:
-    t_bytes = IGSO3_BYTES * n / HBM_BYTES_PER_S
+def igso3_bound_ms(n: int, one_sigma: bool = False) -> tuple[float, str]:
+    t_bytes = (IGSO3_BYTES_ONE_SIGMA if one_sigma else IGSO3_BYTES) * n / HBM_BYTES_PER_S
     t_ops = IGSO3_OPS * n / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -156,10 +161,24 @@ def kernel_inputs(n: int, seed: int):
     return torch.from_numpy(t).cuda(), torch.from_numpy(s).cuda()
 
 
-def gate(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float):
-    """(max |got - want|, max |got - want| / (atol + rtol |want|))."""
+def gate(got: torch.Tensor, want: torch.Tensor, rtol: float, atol):
+    """(max |got - want|, max |got - want| / (atol + rtol |want|)); ``atol``
+    is a number or a tensor that broadcasts against ``want``."""
     diff = (got - want).abs()
     return float(diff.max()), float((diff / (atol + rtol * want.abs())).max())
+
+
+def score_atol_across_libraries(t: torch.Tensor) -> torch.Tensor:
+    """The score's atol against a plain version run by another math library
+    (the CPU's).  For t >= 1e-4 the score is a difference of two terms of
+    size 1/t, each rounded on its own, so two correct evaluations may differ
+    by an ulp of 1/t in each: max(5e-4, 2 ulp(1/t)), which is 5e-4 from
+    t = 4.9e-4 up and at most 1.95e-3 (at t = 1e-4).  Below 1e-4 the score
+    takes its small-t limit and keeps 5e-4."""
+    inv = 1.0 / t.clamp(min=1e-4)
+    ulp = torch.nextafter(inv, torch.full_like(inv, float("inf"))) - inv
+    return torch.where(t >= 1e-4, (2.0 * ulp).clamp(min=SCORE_TOL[1]),
+                       torch.full_like(inv, SCORE_TOL[1]))
 
 
 def phase_device() -> str:
@@ -176,17 +195,46 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
-    """Both kernels' nvcc builds, started together."""
+def phase_build() -> dict:
+    """Both kernels' nvcc builds, started together; returns each kernel's
+    SASS instruction counts, or "not available" without cuobjdump."""
     kernels = {"igso3_logpdf_score": igso3_cuda, "gaussian_kernel_sum": mmd_cuda}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         futures = {name: pool.submit(mod.build) for name, mod in kernels.items()}
         for fut in futures.values():
             fut.result()
+    sass = {}
     for name, mod in kernels.items():
         ptxas = [ln.strip() for ln in mod.build_log.splitlines() if "ptxas" in ln]
-        emit("build", kernel=name, seconds=time.perf_counter() - t0, ptxas=ptxas)
+        sass[name] = _build.sass_summary(mod.library_path) or "not available"
+        emit("build", kernel=name, seconds=time.perf_counter() - t0, ptxas=ptxas,
+             sass=sass[name])
+    return sass
+
+
+def sass_counts(sass: dict) -> dict:
+    """What the kernels line keeps of the SASS: the MMD kernel's inner loop
+    per pair (one MUFU.EX2 a pair), the whole of the IGSO(3) kernel (both
+    arithmetic paths), or "not available"."""
+    out = {"gaussian_kernel_sum": "not available", "igso3_logpdf_score": "not available"}
+    mmd_fns = sass["gaussian_kernel_sum"]
+    if isinstance(mmd_fns, dict):
+        for name, fn in mmd_fns.items():
+            loop = fn["loop"]
+            if "tile_sums" in name and loop and loop["ex2"]:
+                out["gaussian_kernel_sum"] = {
+                    k: v / loop["ex2"] for k, v in loop.items() if k != "ex2"}
+    igso3_fns = sass["igso3_logpdf_score"]
+    if isinstance(igso3_fns, dict):
+        for name, fn in igso3_fns.items():
+            if "igso3_logpdf_score_kernel" in name:
+                out["igso3_logpdf_score"] = {k: v for k, v in fn.items() if k != "loop"}
+    return out
+
+
+def allocations() -> int:
+    return torch.cuda.memory_stats()["allocation.all.allocated"]
 
 
 def phase_kernel_check() -> dict:
@@ -196,38 +244,90 @@ def phase_kernel_check() -> dict:
         cases[str(n)] = kernel_inputs(n, seed=n)
     t7 = torch.linspace(0.1, 3.0, 7, device="cuda").reshape(7, 1)
     cases["(7,1)x(1,)"] = (t7, torch.tensor([0.5], device="cuda"))
+    # the log_prob shape: many angles, one sigma
+    t50k = kernel_inputs(PATH["log_prob_n"], seed=50)[0]
+    cases["50000 x one sigma"] = (t50k, torch.tensor(0.5, device="cuda"))
+    # the cancellation band and the switch between the kernel's two paths
+    band = torch.from_numpy(np.geomspace(1e-4, 5e-2, 4096).astype(np.float32)).cuda()
+    for sigma in (0.05, 0.4, 1.0, 1.5):
+        cases[f"band sigma {sigma}"] = (band, torch.tensor(sigma, device="cuda"))
+    # a t that starts off a 16-byte boundary, and one t against many sigma
+    t1k, s1k = cases["1000"]
+    cases["unaligned"] = (t1k[1:], s1k[1:])
+    cases["one t"] = (torch.tensor(0.7, device="cuda"), s1k)
     worst = {"logf_abs": 0.0, "logf_gate": 0.0, "score_abs": 0.0, "score_gate": 0.0}
     for name, (t, s) in cases.items():
         logf, score = igso3_cuda.igso3_logpdf_score(t, s)
-        ref_logf, ref_score = igso3_cuda.igso3_logpdf_score_ref(t, s)
         sync()
-        assert logf.shape == ref_logf.shape and score.shape == ref_score.shape, name
         assert torch.isfinite(logf).all() and torch.isfinite(score).all(), name
-        la, lg = gate(logf, ref_logf, *LOGF_TOL)
-        sa, sg = gate(score, ref_score, *SCORE_TOL)
-        emit("kernel_check", kernel="igso3_logpdf_score", case=name,
-             logf_max_abs_err=la, logf_gate_ratio=lg, score_max_abs_err=sa,
-             score_gate_ratio=sg)
-        for k, v in (("logf_abs", la), ("logf_gate", lg), ("score_abs", sa), ("score_gate", sg)):
-            worst[k] = max(worst[k], v)
+        # against the plain version on the card (which rounds as the kernel's
+        # exact path does: atol 5e-4 everywhere), and on the CPU
+        for dev in ("cuda", "cpu"):
+            ref_logf, ref_score = igso3_cuda.igso3_logpdf_score_ref(t.to(dev), s.to(dev))
+            assert logf.shape == ref_logf.shape and score.shape == ref_score.shape, name
+            la, lg = gate(logf.to(dev), ref_logf, *LOGF_TOL)
+            score_atol = SCORE_TOL[1] if dev == "cuda" else score_atol_across_libraries(t.cpu())
+            sa, sg = gate(score.to(dev), ref_score, SCORE_TOL[0], score_atol)
+            emit("kernel_check", kernel="igso3_logpdf_score", case=name, plain_on=dev,
+                 logf_max_abs_err=la, logf_gate_ratio=lg, score_max_abs_err=sa,
+                 score_gate_ratio=sg)
+            if dev == "cuda":
+                for k, v in (("logf_abs", la), ("score_abs", sa)):
+                    worst[k] = max(worst[k], v)
+            for k, v in (("logf_gate", lg), ("score_gate", sg)):
+                worst[k] = max(worst[k], v)
     ok = worst["logf_gate"] <= 1.0 and worst["score_gate"] <= 1.0
     if not ok:
         raise AssertionError(f"igso3_logpdf_score disagrees with its plain version: {worst}")
 
+    # on its exact path (t < EXACT_BELOW) the kernel is the plain version to the
+    # bit; below t = 1e-4 the score's limit may differ by an ulp (of ~1e-5),
+    # because on the card PyTorch divides t by 12 as a product with 1/12
+    t, s = kernel_inputs(BINGHAM_N, seed=2)
+    below = float(np.nextafter(np.float32(igso3_cuda.EXACT_BELOW), np.float32(0)))
+    t = (t * (below / np.pi)).clamp(max=below)
+    logf, score = igso3_cuda.igso3_logpdf_score(t, s)
+    ref_logf, ref_score = igso3_cuda.igso3_logpdf_score_ref(t, s)
+    direct = t >= 1e-4
+    exact = bool(torch.equal(logf, ref_logf) and torch.equal(score[direct], ref_score[direct]))
+    _, limit_gate = gate(score[~direct], ref_score[~direct], *SCORE_TOL)
+    emit("kernel_check", kernel="igso3_logpdf_score", case="exact path", bit_identical=exact,
+         cheap_elements=int(igso3_cuda.cheap_domain(t, s).sum()),
+         elements_below_1e_4=int((~direct).sum()), limit_gate_ratio=limit_gate)
+    if not (exact and limit_gate <= 1.0):
+        raise AssertionError("igso3_logpdf_score: the exact path differs from the plain version")
+
+    # one sigma is read in place: the call allocates its outputs and nothing else
+    t, s = cases["50000 x one sigma"]
+    sigma_arg = igso3_cuda.plan_operands(t, s)[3]
+    before = allocations()
+    igso3_cuda.igso3_logpdf_score(t, s)
+    made = allocations() - before
+    emit("kernel_check", kernel="igso3_logpdf_score", case="one sigma in place",
+         allocations=made, passed_as_it_is=sigma_arg is s)
+    if made != 1 or sigma_arg is not s:
+        raise AssertionError(f"one sigma: {made} allocations in the call (expected 1)")
+
     # ms / plain_ms: device time per call (CUDA graph replay);
     # call_ms / plain_call_ms: per eager call from Python, what a chain pays
     timing = {}
-    for n in (PATH["batch"], BINGHAM_N, 2**20):
+    shapes = [(n, False) for n in (PATH["batch"], BINGHAM_N, 2**20)]
+    shapes += [(PATH["log_prob_n"], True), (2**20, True)]
+    for n, one_sigma in shapes:
         t, s = kernel_inputs(n, seed=1)
+        if one_sigma:
+            s = torch.tensor(0.5, device="cuda")
         kernel = lambda: igso3_cuda.igso3_logpdf_score(t, s)  # noqa: E731
         plain = lambda: igso3_cuda.igso3_logpdf_score_ref(t, s)  # noqa: E731
-        bound_ms, bound_by = igso3_bound_ms(n)
-        timing[n] = dict(
+        bound_ms, bound_by = igso3_bound_ms(n, one_sigma)
+        key = f"{n} one sigma" if one_sigma else n
+        timing[key] = dict(
             ms=time_graph(kernel), plain_ms=time_graph(plain, reps=20),
             call_ms=time_cuda(kernel, 1000), plain_call_ms=time_cuda(plain, 100),
             bound_ms=bound_ms, bound_by=bound_by,
         )
-        emit("kernel_time", kernel="igso3_logpdf_score", n=n, **timing[n])
+        emit("kernel_time", kernel="igso3_logpdf_score", n=n, one_sigma=one_sigma,
+             **timing[key])
     return {"worst": worst, "timing": timing, "pass": ok}
 
 
@@ -246,6 +346,20 @@ def pi_pairs(n: int, seed: int):
     return x, (x.double() @ p).float()
 
 
+def theta_sweep(m: int = 4096):
+    """One X against m rotations X exp(theta axis), theta dense on [0, pi]
+    with both ends (float64, then cast); also sum exp(-sqrt(2) theta)."""
+    theta = np.linspace(0.0, np.pi, m)
+    axis = np.array([0.3, -0.5, 0.81])
+    axis /= np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    rel = (np.eye(3) + np.sin(theta)[:, None, None] * k
+           + (1 - np.cos(theta))[:, None, None] * (k @ k))
+    x = rotations(1, 21).double()
+    y = (x @ torch.from_numpy(rel).cuda()).float()
+    return x.float(), y, float(np.exp(-np.sqrt(2.0) * theta).sum())
+
+
 def plain_mmd(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     def s(a, b):
         return mmd_cuda.gaussian_kernel_sum_ref(a, b, chunksize=4000)
@@ -256,10 +370,19 @@ def plain_mmd(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def phase_mmd_check() -> dict:
     """The MMD kernel against its plain version on the card (rtol 1e-4 on
-    each sum), mmd_cuda against the plain MMD (rtol 1e-3, atol 1e-5), two
-    calls at 20k x 20k bit-identical, then timings at the path's 20k x 20k."""
+    each sum, 1e-5 on the theta sweep), mmd_cuda against the plain MMD
+    (rtol 1e-3, atol 1e-5), two calls at 20k x 20k bit-identical, then
+    timings at the path's 20k x 20k."""
     n = BINGHAM_N
+    tile_n, tile_m = mmd_cuda.tile_shape()
+    emit("kernel_check", kernel="gaussian_kernel_sum", case="tile", x_rows=tile_n, y_rows=tile_m)
+    sweep_x, sweep_y, sweep_sum = theta_sweep()
     cases = {
+        "theta sweep 1x4096": (sweep_x, sweep_y),
+        # a ragged tile in each direction of the built tile shape
+        "under one tile": (rotations(tile_n - 3, 13), rotations(tile_m - 1, 14)),
+        "one column": (rotations(tile_n + 5, 15), rotations(1, 16)),
+        "tile plus one": (rotations(tile_n + 1, 17), rotations(tile_m + 1, 18, 0.3)),
         "1x1": (rotations(1, 1), rotations(1, 2)),
         "257x130": (rotations(257, 3), rotations(130, 4)),
         "300x200": (rotations(300, 5), rotations(200, 6, 0.3)),
@@ -275,12 +398,18 @@ def phase_mmd_check() -> dict:
         sync()
         abs_err = float((got - want).abs())
         rel_err = abs_err / float(want.abs())
+        rtol = MMD_SWEEP_RTOL if name.startswith("theta sweep") else MMD_SUM_RTOL
         emit("kernel_check", kernel="gaussian_kernel_sum", case=name, sum=float(got),
-             plain_sum=float(want), abs_err=abs_err, rel_err=rel_err, rtol=MMD_SUM_RTOL)
-        if not (torch.isfinite(got) and rel_err <= MMD_SUM_RTOL):
+             plain_sum=float(want), abs_err=abs_err, rel_err=rel_err, rtol=rtol)
+        if not (torch.isfinite(got) and rel_err <= rtol):
             raise AssertionError(f"gaussian_kernel_sum {name}: {float(got)} vs plain "
                                  f"{float(want)} (rel err {rel_err})")
         worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel_err)
+    sweep_rel = abs(float(mmd_cuda.gaussian_kernel_sum(sweep_x, sweep_y)) - sweep_sum) / sweep_sum
+    emit("kernel_check", kernel="gaussian_kernel_sum", case="theta sweep vs float64",
+         rel_err=sweep_rel, rtol=MMD_SWEEP_RTOL)
+    if not sweep_rel <= MMD_SWEEP_RTOL:
+        raise AssertionError(f"gaussian_kernel_sum theta sweep: rel err {sweep_rel}")
     for name in ("300x200", f"{n}x{n}"):
         x, y = cases[name]
         got, want = float(mmd_cuda.mmd_cuda(x, y)), float(plain_mmd(x, y))
@@ -497,7 +626,7 @@ def timed(name: str, fn):
 
 def main() -> None:
     smi = timed("device", phase_device)
-    timed("build", phase_build)
+    sass = sass_counts(timed("build", phase_build))
     check = timed("kernel_check_igso3", phase_kernel_check)
     mmd_check = timed("kernel_check_mmd", phase_mmd_check)
     timed("small_agreement_aircraft", small_cpu_agreement)
@@ -511,6 +640,8 @@ def main() -> None:
     main_n = PATH["batch"]
     tm, big = check["timing"][main_n], check["timing"][2**20]
     mid = check["timing"][BINGHAM_N]
+    lp = check["timing"][f"{PATH['log_prob_n']} one sigma"]
+    big1 = check["timing"][f"{2**20} one sigma"]
     mt = mmd_check["timing"]
     kernels = [{
         "name": "igso3_logpdf_score",
@@ -528,6 +659,10 @@ def main() -> None:
         "call_ms_1m": big["call_ms"],
         "ms_20k": mid["ms"], "plain_ms_20k": mid["plain_ms"], "bound_ms_20k": mid["bound_ms"],
         "call_ms_20k": mid["call_ms"],
+        "ms_50k_one_sigma": lp["ms"], "plain_ms_50k_one_sigma": lp["plain_ms"],
+        "bound_ms_50k_one_sigma": lp["bound_ms"], "call_ms_50k_one_sigma": lp["call_ms"],
+        "ms_1m_one_sigma": big1["ms"], "bound_ms_1m_one_sigma": big1["bound_ms"],
+        "sass_instructions": sass["igso3_logpdf_score"],
         "logf_max_abs_err": check["worst"]["logf_abs"],
         "score_max_abs_err": check["worst"]["score_abs"],
         "gate_ratio": max(check["worst"]["logf_gate"], check["worst"]["score_gate"]),
@@ -544,6 +679,7 @@ def main() -> None:
         "ms": mt["ms"], "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"],
         "bound_by": mt["bound_by"], "library_ms": None, "n": mt["n"], "m": mt["m"],
         "max_rel_err": mmd_check["max_rel_err"], "pass": True,
+        "sass_per_pair": sass["gaussian_kernel_sum"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

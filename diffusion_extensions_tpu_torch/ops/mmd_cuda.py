@@ -19,6 +19,11 @@ M = X^T Y, trace(M) = <X, Y>_F, and the skew part's vector, of norm
 atan2(|skew(M)| / 2, (trace(M) - 1) / 2) takes four (N, M) float32 matmuls
 (TF32 is off package-wide).  ``ops/metrics.py`` builds its kernel matrices
 and its MMD on these.
+
+``kernel_terms_ref`` is the kernel's own arithmetic in plain float32
+PyTorch (its K = 8 feature rows split three ways in TF32, its atan
+polynomial and exp2), which the CPU tests hold against the plain version
+and the JAX package.
 """
 from __future__ import annotations
 
@@ -37,6 +42,9 @@ __all__ = [
     "biased_mmd",
     "gaussian_kernel_sum",
     "gaussian_kernel_sum_ref",
+    "kernel_terms_ref",
+    "tensor_core_features",
+    "split_tf32",
     "mmd_cuda",
     "build",
 ]
@@ -45,24 +53,35 @@ SOURCE = CSRC / "gaussian_kernel_sum.cu"
 
 launches = 0  # kernel launches since import (or the caller's last reset)
 build_log = ""  # nvcc's output of the last build made in this process
+library_path = None  # the built shared library, once build() has run
 _lib = None
 
 
 def build():
     """Compile the kernel (if this source was not built before) and bind it."""
-    global _lib, build_log
+    global _lib, build_log, library_path
     if _lib is not None:
         return _lib
-    lib, build_log = build_library(SOURCE)
+    lib, build_log, library_path = build_library(SOURCE)
     lib.gaussian_kernel_sum_workspace.argtypes = [ctypes.c_longlong, ctypes.c_longlong]
     lib.gaussian_kernel_sum_workspace.restype = ctypes.c_longlong
+    lib.gaussian_kernel_sum_tile.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.gaussian_kernel_sum_tile.restype = None
     lib.gaussian_kernel_sum_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.gaussian_kernel_sum_launch.restype = ctypes.c_int
     _lib = lib
-    return lib
+    return _lib
+
+
+def tile_shape() -> tuple[int, int]:
+    """(X rows, Y rows) of one tile of the built kernel."""
+    lib = build()
+    tile_n, tile_m = ctypes.c_int(), ctypes.c_int()
+    lib.gaussian_kernel_sum_tile(ctypes.byref(tile_n), ctypes.byref(tile_m))
+    return tile_n.value, tile_m.value
 
 
 def pairwise_rotation_angle(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -94,6 +113,74 @@ def pairwise_rotation_angle(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def gaussian_kernel_matrix(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Pairwise ``rmat_gaussian_kernel`` as an (N, M) matrix."""
     return torch.exp(-math.sqrt(2.0) * pairwise_rotation_angle(x, y))
+
+
+# atan(z) = z P(z^2) on [0, 1], lowest coefficient first: the constants
+# kAtan0..kAtan7 of the kernel source (tools/fit_kernel_polys.py, atan[8])
+ATAN_POLY = (
+    9.999994636e-01, -3.333036602e-01, 1.995149702e-01, -1.392945051e-01,
+    9.687653184e-02, -5.644792691e-02, 2.218549885e-02, -4.132246133e-03,
+)
+
+
+def tensor_core_features(r: torch.Tensor, is_x: bool) -> torch.Tensor:
+    """(N, 4, 8) feature rows of (N, 3, 3) rotations, as the kernel stages
+    them for its tensor-core bilinears (one k-step of K = 8 per bilinear;
+    a[3 r + c] = R[r][c]):
+
+        k-step 0, trace: X: a0 .. a7                  Y: b0 .. b7
+                         (a8 b8 - 1 starts the accumulator)
+        k-step 1, sx:    X: a2 a5 a8 -a1 -a4 -a7 0 0  Y: b1 b4 b7 b2 b5 b8 0 0
+        k-step 2, sy:    X: a0 a3 a6 -a2 -a5 -a8 0 0  Y: b2 b5 b8 b0 b3 b6 0 0
+        k-step 3, sz:    X: a1 a4 a7 -a0 -a3 -a6 0 0  Y: b0 b3 b6 b1 b4 b7 0 0
+    """
+    a = r.reshape(-1, 9)
+    zero = torch.zeros_like(a[:, :2])
+    rows = [a[:, :8]]
+    for first, second in ((2, 1), (0, 2), (1, 0)):  # sx, sy, sz: X's columns
+        if is_x:
+            rows.append(torch.cat((r[:, :, first], -r[:, :, second], zero), dim=-1))
+        else:
+            rows.append(torch.cat((r[:, :, second], r[:, :, first], zero), dim=-1))
+    return torch.stack(rows, dim=1)
+
+
+def split_tf32(v: torch.Tensor):
+    """v = hi + lo (+ ~2^-22 |v|) with both halves rounded to TF32 (10
+    mantissa bits, to nearest with ties away from zero, as cvt.rna.tf32)."""
+    def tf32(a):
+        bits = a.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = tf32(v)
+    return hi, tf32(v - hi)
+
+
+def kernel_terms_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The (N, M) terms exp(-sqrt(2) theta) as the CUDA kernel evaluates
+    them, in plain float32 PyTorch: the unscaled atan2 arguments
+    s = |skew(X^T Y)| and c = tr(X^T Y) - 1, from ``tensor_core_features``
+    split three ways (hi hi + hi lo + lo hi); the octant reduction
+    z = min(s, |c|) / max(s, |c|), the ``ATAN_POLY`` polynomial, theta = pi/2 - copysign(s > |c| ? p : pi/2 - p, c), and one
+    exp2 with sqrt(2) log2(e) folded in.  It holds the kernel's formulas
+    against ``gaussian_kernel_matrix`` where there is no card."""
+    fx, fy = tensor_core_features(x, True), tensor_core_features(y, False)
+    (xh, xl), (yh, yl) = split_tf32(fx), split_tf32(fy)
+    bil = (torch.einsum("nsk,msk->snm", xh, yl) + torch.einsum("nsk,msk->snm", xl, yh)
+           + torch.einsum("nsk,msk->snm", xh, yh))
+    c = bil[0] + (x[:, 2, 2, None] * y[None, :, 2, 2] - 1.0)
+    sx, sy, sz = bil[1], bil[2], bil[3]
+    s = torch.sqrt(sx * sx + sy * sy + sz * sz + 1e-36)
+    ac = c.abs()
+    z = torch.minimum(s, ac) / torch.maximum(s, ac)
+    z2 = z * z
+    p = torch.full_like(z, ATAN_POLY[-1])
+    for coef in ATAN_POLY[-2::-1]:
+        p = p * z2 + coef
+    p = p * z
+    u = torch.where(s > ac, p, 0.5 * math.pi - p)
+    scale = math.sqrt(2.0) * math.log2(math.e)
+    return torch.exp2(torch.copysign(u, c) * scale - scale * 0.5 * math.pi)
 
 
 def plain_kernel_sum(
@@ -136,7 +223,7 @@ def gaussian_kernel_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     global launches
     if x.device.type == "cpu" and y.device.type == "cpu":
         return gaussian_kernel_sum_ref(x, y)
-    _check(x, y)
+    _check(x, y)  # before any build
     lib = build()
     n, m = x.shape[0], y.shape[0]
     xf = x.reshape(n, 9).contiguous()

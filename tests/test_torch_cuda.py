@@ -64,6 +64,100 @@ def test_kernel_refuses_other_dtypes(cuda):
                                       torch.ones(4, device=cuda, dtype=torch.float64))
 
 
+def _hold_to_plain(logf, score, t, s):
+    """The gates (log f rtol/atol 1e-5; score rtol 1e-4, atol 5e-4) against
+    the plain version on the card, which rounds as the kernel's exact path
+    does, and on the CPU.  Against the CPU's math library the score's atol
+    is max(5e-4, 2 ulp(1/t)) for t >= 1e-4: there the score is a difference
+    of two terms of size 1/t, each rounded on its own, so two correct
+    evaluations may differ by an ulp of 1/t in each.  That is 5e-4 from
+    t = 4.9e-4 up and at most 1.95e-3 (at t = 1e-4)."""
+    ref_logf, ref_score = igso3_cuda.igso3_logpdf_score_ref(t, s)
+    torch.testing.assert_close(logf, ref_logf, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(score, ref_score, rtol=1e-4, atol=5e-4)
+    t, s = t.cpu(), s.cpu()
+    ref_logf, ref_score = igso3_cuda.igso3_logpdf_score_ref(t, s)
+    torch.testing.assert_close(logf.cpu(), ref_logf, rtol=1e-5, atol=1e-5)
+    inv = 1.0 / t.clamp(min=1e-4)
+    ulp = torch.nextafter(inv, torch.full_like(inv, float("inf"))) - inv
+    atol = torch.where(t >= 1e-4, (2.0 * ulp).clamp(min=5e-4), torch.full_like(inv, 5e-4))
+    excess = (score.cpu() - ref_score).abs() - (atol + 1e-4 * ref_score.abs())
+    assert float(excess.max()) <= 0.0, f"score off by {float(excess.max())} beyond its gate"
+
+
+@pytest.mark.parametrize("sigma_shape", [(), (1,)])
+def test_kernel_reads_a_one_value_sigma_in_place(cuda, sigma_shape):
+    """The log_prob shape: 50,000 angles, one sigma.  sigma is passed as it
+    is (stride 0, no expanded copy) and the results are those of the
+    expanded call, bit for bit."""
+    t, _ = _inputs(50_000, 3, cuda)
+    sigma = torch.full(sigma_shape, 0.5, device=cuda)
+    _, t_arg, t_stride, sigma_arg, sigma_stride = igso3_cuda.plan_operands(t, sigma)
+    assert (t_stride, sigma_stride) == (1, 0)
+    assert t_arg is t and sigma_arg is sigma
+    before = igso3_cuda.launches
+    logf, score = igso3_cuda.igso3_logpdf_score(t, sigma)
+    assert igso3_cuda.launches == before + 1
+    assert logf.shape == t.shape and score.shape == t.shape
+    full_logf, full_score = igso3_cuda.igso3_logpdf_score(t, sigma.expand(t.shape).contiguous())
+    assert torch.equal(logf, full_logf) and torch.equal(score, full_score)
+    _hold_to_plain(logf, score, t, sigma)
+
+
+def test_kernel_strides_change_no_result(cuda):
+    """(7,1) x (1,), one t against many sigma, a t that starts off a 16-byte
+    boundary and a broadcast the strides cannot express: each equals the
+    dense call on the expanded operands, bit for bit."""
+    t7 = torch.linspace(0.1, 3.0, 7, device=cuda).reshape(7, 1)
+    t, s = _inputs(1001, 5, cuda)
+    cases = [(t7, torch.tensor([0.5], device=cuda)), (torch.tensor(0.7, device=cuda), s),
+             (t[1:], s[1:]), (t7, s[:5].clamp(min=0.05))]
+    for a, b in cases:
+        logf, score = igso3_cuda.igso3_logpdf_score(a, b)
+        ea, eb = (v.contiguous() for v in torch.broadcast_tensors(a, b))
+        full_logf, full_score = igso3_cuda.igso3_logpdf_score(ea.clone(), eb.clone())
+        assert logf.shape == ea.shape
+        assert torch.equal(logf, full_logf) and torch.equal(score, full_score)
+        _hold_to_plain(logf, score, ea, eb)
+
+
+@pytest.mark.parametrize("sigma", [0.05, 0.4, 1.0, 1.5])
+def test_kernel_holds_the_cancellation_band(cuda, sigma):
+    """4096 angles log-spaced over [1e-4, 5e-2]: the band where the score
+    is a difference of two ~1/t terms, and the switch between the kernel's
+    two arithmetic paths at t = 0.02."""
+    t = torch.from_numpy(np.geomspace(1e-4, 5e-2, 4096).astype(np.float32)).to(cuda)
+    s = torch.tensor(sigma, device=cuda)
+    logf, score = igso3_cuda.igso3_logpdf_score(t, s)
+    _hold_to_plain(logf, score, t, s)
+
+
+def test_kernel_is_the_plain_version_to_the_bit_on_its_exact_path(cuda):
+    """Below t = EXACT_BELOW, and near t = pi with a small sigma, the kernel
+    evaluates the plain version's expression operation by operation: equal
+    bits on the card (below t = 1e-4 the score's limit within its gate only:
+    there PyTorch divides t by 12 as a product with 1/12 on the card, an ulp
+    of ~1e-5 away).  Just above the threshold the gates hold."""
+    lo = np.float32(igso3_cuda.EXACT_BELOW)
+    below = np.nextafter(lo, np.float32(0))
+    rng = np.random.default_rng(11)
+    t = np.concatenate([rng.uniform(0.0, below, 4096), [0.0, 1e-7, 1e-5, 1e-4, below]])
+    s = rng.uniform(0.02, 1.5, t.size)
+    t_pi = np.pi - rng.uniform(0.0, 15.0, 2048) * 0.02**2 / np.pi  # u (pi - t) < 15
+    t = torch.from_numpy(np.concatenate([t, t_pi]).astype(np.float32)).to(cuda)
+    s = torch.from_numpy(np.concatenate([s, np.full(2048, 0.02)]).astype(np.float32)).to(cuda)
+    assert not igso3_cuda.cheap_domain(t, s).any()
+    logf, score = igso3_cuda.igso3_logpdf_score(t, s)
+    ref_logf, ref_score = igso3_cuda.igso3_logpdf_score_ref(t, s)
+    direct = t >= 1e-4
+    assert torch.equal(logf, ref_logf) and torch.equal(score[direct], ref_score[direct])
+    torch.testing.assert_close(score, ref_score, rtol=1e-4, atol=5e-4)
+    above = torch.tensor([lo, np.nextafter(lo, np.float32(1))], device=cuda).repeat(4)
+    sig = torch.tensor([0.05, 0.4, 1.0, 1.5], device=cuda).repeat_interleave(2)
+    assert igso3_cuda.cheap_domain(above, sig).all()
+    _hold_to_plain(*igso3_cuda.igso3_logpdf_score(above, sig), above, sig)
+
+
 def test_heun_sampler_launches_kernel_twice_per_step(cuda):
     from diffusion_extensions_tpu_torch.models.planenet import PlaneNet
     from diffusion_extensions_tpu_torch.models.projections import PointCloudProj
@@ -111,6 +205,46 @@ def test_mmd_kernel_identity_and_pi_pairs(cuda):
     got = mmd_cuda.gaussian_kernel_sum(x[:500], y)
     torch.testing.assert_close(got, mmd_cuda.gaussian_kernel_sum_ref(x[:500], y), rtol=1e-4,
                                atol=0)
+
+
+def test_mmd_kernel_theta_sweep(cuda):
+    """One X against 4096 rotations X exp(theta_m axis), theta dense on
+    [0, pi] with both ends: every octant of the kernel's atan2 and both of
+    its selects.  rtol 1e-5 against the plain sum and against
+    sum exp(-sqrt(2) theta_m) in float64."""
+    theta = np.linspace(0.0, np.pi, 4096)
+    axis = np.array([0.3, -0.5, 0.81])
+    axis /= np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    rel = (np.eye(3) + np.sin(theta)[:, None, None] * k
+           + (1 - np.cos(theta))[:, None, None] * (k @ k))
+    x64 = _rots(1, 21, "cpu").double().numpy()
+    x = torch.from_numpy(x64.astype(np.float32)).to(cuda)
+    y = torch.from_numpy((x64 @ rel).astype(np.float32)).to(cuda)
+    got = mmd_cuda.gaussian_kernel_sum(x, y)
+    torch.testing.assert_close(got, mmd_cuda.gaussian_kernel_sum_ref(x, y), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(float(got), np.exp(-np.sqrt(2.0) * theta).sum(), rtol=1e-5)
+    # the same pairs one at a time (N = M = 1 launches) at both ends and mid-way
+    for i in (0, 1, 2047, 4094, 4095):
+        one = mmd_cuda.gaussian_kernel_sum(x, y[i:i + 1])
+        np.testing.assert_allclose(float(one), np.exp(-np.sqrt(2.0) * theta[i]), rtol=2e-6,
+                                   atol=2e-7)
+
+
+@pytest.mark.parametrize("case", ["under one tile", "one column", "tile plus one",
+                                  "one row", "two tiles less one"])
+def test_mmd_kernel_ragged_tiles(cuda, case):
+    """Sizes that leave a ragged tile in each direction of the built tile
+    shape (several X rows a thread): rows past N or M add nothing."""
+    tile_n, tile_m = mmd_cuda.tile_shape()
+    n, m = {"under one tile": (tile_n - 3, tile_m - 1), "one column": (tile_n + 5, 1),
+            "tile plus one": (tile_n + 1, tile_m + 1), "one row": (1, tile_m + 1),
+            "two tiles less one": (2 * tile_n - 1, 2 * tile_m - 1)}[case]
+    x, y = _rots(n, n, cuda), _rots(m, m + 1, cuda, 0.3)
+    got = mmd_cuda.gaussian_kernel_sum(x, y)
+    torch.testing.assert_close(got, mmd_cuda.gaussian_kernel_sum_ref(x, y), rtol=1e-4, atol=0)
+    torch.testing.assert_close(got.cpu(), mmd_cuda.gaussian_kernel_sum_ref(x.cpu(), y.cpu()),
+                               rtol=1e-4, atol=0)
 
 
 def test_mmd_kernel_is_deterministic(cuda):

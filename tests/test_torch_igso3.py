@@ -211,3 +211,128 @@ def test_isotropic_sample_matches_reference_distribution(g):
     d = tig.IsotropicGaussianSO3.create(0.5, device="cpu")
     ours = tig.rotation_angle(d.sample(torch.Generator().manual_seed(42), (20000,))).numpy()
     assert ks_2samp(g["sampled_angles_eps05"], ours).pvalue > 0.01
+
+
+# ---------------------------------------------------------------------------
+# What the kernel's wrapper does in Python, and the kernel's arithmetic
+# ---------------------------------------------------------------------------
+
+def _operand_cases():
+    t7 = torch.linspace(0.1, 3.0, 7).reshape(7, 1)
+    t, s = (_t(a) for a in _kernel_inputs(40, seed=4))
+    return {
+        "0-dim sigma": (t, torch.tensor(0.5), (1, 0), (True, True)),
+        "1-element sigma": (t, torch.tensor([0.5]), (1, 0), (True, True)),
+        "(7,1)x(1,)": (t7, torch.tensor([0.5]), (1, 0), (True, True)),
+        "same shape": (t, s, (1, 1), (True, True)),
+        "one t, many sigma": (torch.tensor(0.7), s, (0, 1), (True, True)),
+        "(7,1)x(5,)": (t7, s[:5].clamp(min=0.05), (1, 1), (False, False)),
+        "strided t": (t[::2], s[:20], (1, 1), (False, True)),
+        "both one value": (torch.tensor([0.7]), torch.tensor(0.5), (0, 0), (True, True)),
+    }
+
+
+@pytest.mark.parametrize("case", list(_operand_cases()))
+def test_plan_operands_strides_and_no_copy(case):
+    """plan_operands + the C entry's indexing t[i * t_stride],
+    sigma[i * sigma_stride] give the broadcast call's values (equal bits on
+    the plain version, and the Pallas kernel's within its gates); operands
+    the strides can express are passed in place."""
+    t, sigma, strides, in_place = _operand_cases()[case]
+    shape, t_arg, t_stride, s_arg, s_stride = igso3_cuda.plan_operands(t, sigma)
+    assert shape == torch.broadcast_shapes(t.shape, sigma.shape)
+    assert (t_stride, s_stride) == strides
+    assert (t_arg.data_ptr() == t.data_ptr(), s_arg.data_ptr() == sigma.data_ptr()) == in_place
+    assert (t_arg is t, s_arg is sigma) == in_place
+    assert t_arg.is_contiguous() and s_arg.is_contiguous()
+    t_flat, s_flat = t_arg.reshape(-1), s_arg.reshape(-1)
+    n = int(np.prod(shape))
+    assert t_flat.numel() == (n if t_stride else 1) and s_flat.numel() == (n if s_stride else 1)
+    i = torch.arange(n)
+    logf, score = igso3_cuda.igso3_logpdf_score_ref(t_flat[i * t_stride], s_flat[i * s_stride])
+    want_logf, want_score = igso3_cuda.igso3_logpdf_score_ref(t, sigma)
+    assert torch.equal(logf.view(shape), want_logf) and torch.equal(score.view(shape), want_score)
+    bt, bs = np.broadcast_arrays(t.numpy(), sigma.numpy())
+    p_logf, p_score = igso3_logpdf_score_pallas(jnp.asarray(bt), jnp.asarray(bs), interpret=True)
+    np.testing.assert_allclose(logf.view(shape), np.asarray(p_logf), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(score.view(shape), np.asarray(p_score), rtol=1e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("shape", [(32,), (7, 1), (3, 5, 7), (4, 8), (50_000,), (0,), ()])
+def test_alloc_outputs_is_one_allocation(shape):
+    logf, score = igso3_cuda.alloc_outputs(shape, "cpu")
+    n = int(np.prod(shape))
+    assert logf.shape == shape and score.shape == shape
+    assert logf.dtype == score.dtype == torch.float32
+    assert logf.untyped_storage().data_ptr() == score.untyped_storage().data_ptr()
+    assert logf.untyped_storage().nbytes() == 8 * n
+    if n:
+        assert logf.is_contiguous() and score.is_contiguous()
+        assert score.data_ptr() - logf.data_ptr() == 4 * n
+        logf.fill_(1.0)
+        score.fill_(2.0)
+        assert float(logf.sum()) == n and float(score.sum()) == 2 * n
+
+
+def _band(sigma):
+    """Angles dense over the cancellation band and the path switch, the
+    whole of [1e-7, pi] and the approach to pi, with t = 0 and pi."""
+    t = np.concatenate([np.geomspace(1e-4, 5e-2, 4096), np.geomspace(1e-7, np.pi, 4096),
+                        np.pi - np.geomspace(1e-7, 0.3, 4096), [0.0, np.pi]])
+    t = np.minimum(t.astype(np.float32), np.float32(np.pi))
+    return t, np.full_like(t, sigma)
+
+
+@pytest.mark.parametrize("sigma", [1e-3, 0.02, 0.05, 0.4, 1.0, 1.5])
+def test_kernel_math_ref_matches_jax_and_plain(sigma):
+    """The kernel's arithmetic (cheap path on its domain, the plain
+    expression elsewhere) in plain float32 PyTorch, against the JAX
+    functions and the port's plain version: the kernel's gates."""
+    t, s = _band(sigma)
+    logf, score = igso3_cuda.kernel_math_ref(_t(t), _t(s))
+    assert torch.isfinite(logf).all() and torch.isfinite(score).all()
+    cheap = igso3_cuda.cheap_domain(_t(t), _t(s))
+    assert cheap.any() and not cheap.all()
+    ref_logf, ref_score = igso3_cuda.igso3_logpdf_score_ref(_t(t), _t(s))
+    np.testing.assert_allclose(logf, ref_logf, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(score, ref_score, rtol=1e-4, atol=5e-4)
+    # against JAX where the kernel's arithmetic is its own (elsewhere it is
+    # the plain version's, which the tests above hold against JAX)
+    j_logf = np.asarray(jig.igso3_log_density(jnp.asarray(t), jnp.asarray(s)))
+    j_score = np.asarray(jig.igso3_score_angle(jnp.asarray(t), jnp.asarray(s)))
+    np.testing.assert_allclose(logf[cheap], j_logf[cheap], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(score[cheap], j_score[cheap], rtol=1e-4, atol=5e-4)
+
+
+def test_cheap_domain_boundaries():
+    lo = np.float32(igso3_cuda.EXACT_BELOW)
+    t = _t([np.nextafter(lo, np.float32(0)), lo, 1.0, 3.1415927, 3.2, 0.0, float("nan")])
+    np.testing.assert_array_equal(igso3_cuda.cheap_domain(t, torch.tensor(0.5)),
+                                  [False, True, True, True, False, False, False])
+    # near pi with a small sigma, and sigma outside the cheap path's range
+    near = _t([3.1415927, 3.14, 3.0])
+    np.testing.assert_array_equal(igso3_cuda.cheap_domain(near, torch.tensor(0.02)),
+                                  [False, False, True])
+    np.testing.assert_array_equal(
+        igso3_cuda.cheap_domain(torch.tensor(1.0), _t([1e-6, 1e-3, 1e11, float("nan")])),
+        [False, True, False, False])
+
+
+def test_kernel_source_holds_the_python_constants():
+    """The constants of csrc/igso3_logpdf_score.cu are those of the Python
+    mirror that the CPU tests exercise."""
+    import re
+
+    src = igso3_cuda.SOURCE.read_text()
+    consts = {k: float(v) for k, v in re.findall(r"constexpr float (k\w+) = ([-+.\deE]+)f;", src)}
+    for prefix, poly in (("kSin", igso3_cuda.SIN_POLY), ("kCos", igso3_cuda.COS_POLY),
+                         ("kSinh", igso3_cuda.SINH_POLY), ("kCosh", igso3_cuda.COSH_POLY)):
+        got = [1.0] + [consts[f"{prefix}{i}"] for i in range(1, len(poly))]
+        assert got == list(poly), prefix
+        assert f"{prefix}{len(poly)}" not in consts
+    assert consts["kExactBelow"] == igso3_cuda.EXACT_BELOW
+    assert consts["kCheapMaxT"] == igso3_cuda.CHEAP_MAX_T
+    assert (consts["kCheapMinVar"], consts["kCheapMaxVar"]) == (
+        igso3_cuda.CHEAP_MIN_VAR, igso3_cuda.CHEAP_MAX_VAR)
+    assert (consts["kNearPiMinU"], consts["kNearPiGap"]) == (
+        igso3_cuda.NEAR_PI_MIN_U, igso3_cuda.NEAR_PI_GAP)

@@ -153,3 +153,106 @@ def test_mmd_refuses_mixed_devices_before_any_launch():
         mmd_cuda.gaussian_kernel_sum(x, x.to("meta"))
     with pytest.raises(ValueError):
         tm.mmd(x, x.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's arithmetic (octant-reduced atan polynomial, exp2) in
+# plain PyTorch
+# ---------------------------------------------------------------------------
+
+def _theta_sweep(axis, m=4096):
+    """One X and m rotations X exp(theta axis), theta dense on [0, pi] with
+    both ends (float64, then cast)."""
+    theta = np.linspace(0.0, np.pi, m)
+    axis = np.array(axis, dtype=np.float64)
+    axis /= np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    rel = (np.eye(3) + np.sin(theta)[:, None, None] * k
+           + (1 - np.cos(theta))[:, None, None] * (k @ k))
+    x = _rots(21, 1).astype(np.float64)
+    return theta, x.astype(np.float32), (x @ rel).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["300x200", "257x130", "X=Y", "pi pairs", "1x1", "one column",
+                                  "tile plus one", "small angles"])
+def test_kernel_terms_ref_matches_pallas_xla_and_plain(case, pairs):
+    """The kernel's formulas (bilinears split three ways in TF32 as on the
+    tensor cores) against the Pallas kernel (interpret mode), the XLA sum
+    and the port's plain version: rtol 1e-4 on the sum, the kernel's gate,
+    and 2e-6 term by term against the plain matrix."""
+    x, y = {"300x200": (_rots(300, 300), _rots(207, 200, 0.3)),
+            "257x130": (_rots(257, 257), _rots(137, 130, 0.3)),
+            "X=Y": (_rots(5, 200),) * 2,
+            "pi pairs": pairs,
+            "1x1": (_rots(1, 1), _rots(2, 1)),
+            "one column": (_rots(15, 133), _rots(16, 1)),
+            "tile plus one": (_rots(17, 129), _rots(18, 513, 0.3)),
+            "small angles": (_rots(19, 40, 1e-3), _rots(20, 30, 1e-3))}[case]
+    terms = mmd_cuda.kernel_terms_ref(_t(x), _t(y))
+    assert terms.shape == (x.shape[0], y.shape[0]) and terms.dtype == torch.float32
+    plain = mmd_cuda.gaussian_kernel_matrix(_t(x), _t(y))
+    np.testing.assert_allclose(terms, plain, rtol=2e-6, atol=2e-7)
+    pallas = float(gaussian_kernel_sum_pallas(jnp.asarray(x), jnp.asarray(y), interpret=True))
+    xla = float(jnp.sum(jm.gaussian_kernel_matrix(jnp.asarray(x), jnp.asarray(y))))
+    for ref in (pallas, xla, float(plain.sum())):
+        np.testing.assert_allclose(float(terms.sum()), ref, rtol=1e-4)
+
+
+@pytest.mark.parametrize("axis", [(0.3, -0.5, 0.81), (0.0, 0.0, 1.0)], ids=["oblique", "z"])
+def test_kernel_terms_ref_theta_sweep(axis):
+    """Every octant of the reduced atan2 and both selects: each term within
+    2e-6 of exp(-sqrt(2) theta) in float64, the sum within rtol 1e-5, and the
+    MMD built on these terms within the MMD's gate of the JAX MMD."""
+    theta, x, y = _theta_sweep(axis)
+    terms = mmd_cuda.kernel_terms_ref(_t(x), _t(y))[0].numpy()
+    want = np.exp(-np.sqrt(2.0) * theta)
+    np.testing.assert_allclose(terms, want, rtol=2e-6, atol=2e-7)
+    np.testing.assert_allclose(terms.sum(dtype=np.float64), want.sum(), rtol=1e-5)
+    a, b = _rots(50, 200), _rots(51, 150, 0.3)
+    ours = mmd_cuda.biased_mmd(
+        lambda p, q: mmd_cuda.kernel_terms_ref(p, q).sum(), _t(a), _t(b))
+    ref = float(jm.mmd(jnp.asarray(a), jnp.asarray(b), jm.gaussian_kernel_matrix))
+    np.testing.assert_allclose(float(ours), ref, rtol=1e-3, atol=1e-5)
+
+
+def test_kernel_source_holds_the_atan_polynomial():
+    """kAtan0..kAtan7 of csrc/gaussian_kernel_sum.cu are ATAN_POLY, and the
+    polynomial is within 2e-7 rad of atan on [0, 1] in float32."""
+    import re
+
+    src = mmd_cuda.SOURCE.read_text()
+    consts = dict(re.findall(r"constexpr float (kAtan\d) = ([-+.\deE]+)f;", src))
+    assert [float(consts[f"kAtan{i}"]) for i in range(8)] == list(mmd_cuda.ATAN_POLY)
+    assert "atomicAdd" not in src
+    z = torch.linspace(0.0, 1.0, 100_001)
+    p = torch.full_like(z, mmd_cuda.ATAN_POLY[-1])
+    for coef in mmd_cuda.ATAN_POLY[-2::-1]:
+        p = p * (z * z) + coef
+    err = (p * z).double() - torch.atan(z.double())
+    assert float(err.abs().max()) < 2e-7
+
+
+def test_tensor_core_features_give_the_four_bilinears(pairs):
+    """sum_k Fx[n, s, k] Fy[m, s, k] is the trace's first eight products and
+    the three skew components of X^T Y (the plain version's and JAX's
+    pairwise angle follows from them); split three ways in TF32 each
+    bilinear stays within 1e-6."""
+    x, y = _t(pairs[0]), _t(pairs[1])
+    fx, fy = mmd_cuda.tensor_core_features(x, True), mmd_cuda.tensor_core_features(y, False)
+    assert fx.shape == (64, 4, 8) and fy.shape == (64, 4, 8)
+    bil = torch.einsum("nsk,msk->snm", fx.double(), fy.double())
+    g = torch.einsum("nrp,mrq->nmpq", x.double(), y.double())  # X^T Y per pair
+    want = torch.stack([torch.einsum("nmpp->nm", g) - x[:, 2, 2, None].double() * y[None, :, 2, 2],
+                        g[..., 2, 1] - g[..., 1, 2], g[..., 0, 2] - g[..., 2, 0],
+                        g[..., 1, 0] - g[..., 0, 1]])
+    np.testing.assert_allclose(bil, want, rtol=0, atol=1e-12)
+    theta = torch.atan2(0.5 * torch.linalg.norm(bil[1:], dim=0),
+                        0.5 * (bil[0] + x[:, 2, 2, None] * y[None, :, 2, 2] - 1.0))
+    ref = np.asarray(jm.pairwise_rotation_angle(jnp.asarray(pairs[0]), jnp.asarray(pairs[1])))
+    np.testing.assert_allclose(theta, ref, rtol=0, atol=1e-5)
+    (xh, xl), (yh, yl) = mmd_cuda.split_tf32(fx), mmd_cuda.split_tf32(fy)
+    assert float((fx - xh - xl).abs().max()) <= 2.0**-21
+    assert int((xh.view(torch.int32) & 0x1FFF).abs().max()) == 0  # 10 mantissa bits
+    split = sum(torch.einsum("nsk,msk->snm", a.double(), b.double())
+                for a, b in ((xh, yl), (xl, yh), (xh, yh)))
+    np.testing.assert_allclose(split, want, rtol=0, atol=1e-6)
