@@ -6,20 +6,33 @@
 Builds every CUDA kernel of the port from the sources in this checkout (one
 nvcc per source, all started together; prints what ptxas says of each and,
 where cuobjdump is there, the SASS instruction counts), holds each against
-its plain PyTorch version on the card, then drives two paths at full size,
+its plain PyTorch version on the card, then drives four paths at full size,
 each with the kernels' launch counts set to 0 just before it and read just
 after:
 
 * the aircraft sampling path (PlaneNet dim 512 / 4 heads / 4 layers, random
   weights from a seed, batch 32 x 256 points, ProjectedSO3Diffusion with
-  T = 1000): the 1000-step ancestral chain, the 50-step Heun
+  T = 1000): a 250-step ancestral chain (T = 250; the 1000-step chain runs
+  under the training phase's --test), the 50-step Heun
   probability-flow sampler (whose score runs the IGSO(3) kernel) and
   IsotropicGaussianSO3.log_prob on 50,000 rotations;
 * the Bingham evaluation path, ``experiments/bingham.py --test --sampler-ab``
   on the "lcr" preset: RotPredict d_model 65 (seeded init), SO3Diffusion
   T = 1000, 20,000 chains per sampler row, and MMD against 20,000 target
-  rotations, whose three 20k x 20k sums run the MMD kernel.
+  rotations, whose three 20k x 20k sums run the MMD kernel;
+* aircraft training, ``experiments/aircraft.py`` at the same full width:
+  10 warm-up + 100 timed steps in fp32, with ``--bf16``, with ``--opt-impl
+  fused``, with ``--steps-per-call 8`` (one CUDA graph replayed a step) and
+  with ``--bf16 --steps-per-call 8``; 200 steps whose loss must
+  fall, a ``--resume`` of 20 more; 2N steps against N + save + restore + N
+  and against the same steps replayed from a CUDA graph, to the bit, ``--test`` on the written checkpoint (one chain per
+  shape) and 32 Heun-50 chains on the trained weights (100 launches of the
+  IGSO(3) kernel);
+* Bingham training, ``experiments/bingham.py lcr --steps 2000 --mmd-every
+  1000``: two online MMD evaluations (6 launches of the MMD kernel), the
+  curve file, then ``--test`` on the written checkpoint.
 
+Two small runs hold the card against the CPU for sampling, one for training.
 Every phase prints JSON lines, and the seconds each phase took; any failure
 raises and exits non-zero.  The last lines are the kernels' summary, the
 card's name and power limit as nvidia-smi reports them, and
@@ -30,6 +43,8 @@ CUDA device the script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -41,9 +56,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from diffusion_extensions_tpu_torch.data.shapenet import synthetic_planes
+from diffusion_extensions_tpu_torch.data.shapenet import BatchLoader, synthetic_planes
 from diffusion_extensions_tpu_torch.data.synthetic import bingham_dist
-from diffusion_extensions_tpu_torch.experiments import bingham
+from diffusion_extensions_tpu_torch.experiments import aircraft, bingham
 from diffusion_extensions_tpu_torch.experiments.aircraft import subsample_points
 from diffusion_extensions_tpu_torch.models.planenet import PlaneNet
 from diffusion_extensions_tpu_torch.models.projections import PointCloudProj
@@ -52,7 +67,16 @@ from diffusion_extensions_tpu_torch.ops import _build, igso3_cuda, mmd_cuda
 from diffusion_extensions_tpu_torch.ops.igso3 import IsotropicGaussianSO3, igso3_log_density
 from diffusion_extensions_tpu_torch.ops.metrics import mmd
 from diffusion_extensions_tpu_torch.ops.so3 import exp_skewvec, quat_to_rmat, rotation_angle
+from diffusion_extensions_tpu_torch.parallel.dp import make_dp_train_step
 from diffusion_extensions_tpu_torch.processes.so3 import ProjectedSO3Diffusion, SO3Diffusion
+from diffusion_extensions_tpu_torch.train.optim import make_optimizer
+from diffusion_extensions_tpu_torch.train.state import (
+    TrainState,
+    latest_step,
+    load_eval_weights,
+    restore_checkpoint,
+    save_checkpoint,
+)
 
 # H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -74,9 +98,19 @@ SCORE_TOL = (1e-4, 5e-4)
 MMD_SUM_RTOL = 1e-4
 MMD_SWEEP_RTOL = 1e-5  # one X against rotations at theta dense on [0, pi]
 MMD_TOL = (1e-3, 1e-5)
+# ancestral_steps: the sampling path runs its ancestral chain on a process
+# with T = 250; the 1000-step chain at this width is run, and timed, by the
+# training phase's --test on its checkpoint
 PATH = dict(dim=512, heads=4, layers=4, batch=32, samples=256, timesteps=1000,
-            heun_steps=50, log_prob_n=50_000)
+            ancestral_steps=250, heun_steps=50, log_prob_n=50_000)
 BINGHAM_COV, BINGHAM_N = "lcr", 20_000
+# training phases: timed steps after the warm-up, the logging interval of the
+# timed runs (each logged row also runs the frozen validation probe, one
+# forward), the length of the falling-loss run, its resume, and N of the
+# N + save + restore + N check
+TRAIN = dict(warmup=10, timed=100, print_every=22, fall_steps=200, resume_more=20,
+             exact_n=10, bingham_steps=2000, bingham_mmd_every=1000,
+             bingham_print_every=100)
 # Bingham rows: kernel launches each row must make (3 MMD sums per row)
 BINGHAM_IGSO3 = {"ancestral_1000": 0, "ddim_50": 0, "ddim_20": 0, "pf_flow_50": 0,
                  "pf_flow_10": 0, "pf_heun_25_karras": 50, "pf_euler_50_karras": 50,
@@ -508,12 +542,13 @@ def check_rotations(name: str, r: torch.Tensor) -> dict:
 
 def phase_path() -> dict:
     """The aircraft sampling path at full width; returns each kernel's
-    launches in this run."""
+    launches in this run and the forward's ms."""
     device = torch.device("cuda")
     t0 = time.perf_counter()
     torch.manual_seed(0)
     model = PlaneNet(dim=PATH["dim"], heads=PATH["heads"], layers=PATH["layers"]).to(device).eval()
     process = ProjectedSO3Diffusion(PATH["timesteps"], device=device)
+    short_process = ProjectedSO3Diffusion(PATH["ancestral_steps"], device=device)
     clouds = subsample_points(synthetic_planes(128, seed=2), PATH["samples"], seed=17)
     proj = PointCloudProj(torch.from_numpy(clouds[: PATH["batch"]]).to(device))
     dist = IsotropicGaussianSO3.create(0.5, device=device)
@@ -534,9 +569,9 @@ def phase_path() -> dict:
     with torch.inference_mode():
         before = igso3_cuda.launches
         t0 = time.perf_counter()
-        r_anc = process.p_sample_loop(model, gen, (PATH["batch"],), proj)
+        r_anc = short_process.p_sample_loop(model, gen, (PATH["batch"],), proj)
         sync()
-        runs["ancestral"] = dict(seconds=time.perf_counter() - t0, steps=PATH["timesteps"],
+        runs["ancestral"] = dict(seconds=time.perf_counter() - t0, steps=PATH["ancestral_steps"],
                                  launches=igso3_cuda.launches - before,
                                  **check_rotations("ancestral", r_anc))
 
@@ -574,7 +609,7 @@ def phase_path() -> dict:
         raise AssertionError(f"log_prob disagrees with the plain density: {la}")
     if total["igso3_logpdf_score"] == 0:
         raise AssertionError("the aircraft path launched no IGSO(3) kernel")
-    return total
+    return total, fwd_ms
 
 
 def phase_bingham_path() -> dict:
@@ -617,6 +652,251 @@ def phase_bingham_path() -> dict:
     return total
 
 
+def small_train_agreement() -> None:
+    """Five train steps on the card against the same five on the CPU: PlaneNet
+    dim 32 / 2 heads / 1 layer, batch 8 x 16 points, T = 100, the same init,
+    clouds, t and noise (drawn once on the CPU), Adam lr 1e-3: each step's
+    loss within rtol 1e-4."""
+    rng = np.random.default_rng(11)
+    clouds = torch.from_numpy(rng.standard_normal((5, 8, 16, 3)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 100, (5, 8)))
+    torch.manual_seed(11)
+    init = PlaneNet(dim=32, heads=2, layers=1).state_dict()
+    proc_cpu = ProjectedSO3Diffusion(100, device="cpu")
+    gen = torch.Generator().manual_seed(12)
+    noise = torch.stack([proc_cpu.sample_noise(gen, t[i]) for i in range(5)])
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = PlaneNet(dim=32, heads=2, layers=1)
+        model.load_state_dict(init)
+        model = model.to(dev)
+        proc = proc_cpu if dev == "cpu" else ProjectedSO3Diffusion(100, device=dev)
+        opt = make_optimizer(model.named_parameters(), 1e-3)
+        step = make_dp_train_step(aircraft.make_loss_fn(model, proc), model, opt)
+        state = TrainState(model, opt, torch.Generator(device=dev))
+        losses[dev] = []
+        for i in range(5):
+            state, m = step(state, (clouds[i].to(dev), t[i].to(dev), noise[i].to(dev)))
+            losses[dev].append(float(m["loss"]))
+    rel = max(abs(a - b) / abs(a) for a, b in zip(losses["cpu"], losses["cuda"]))
+    emit("small_agreement", run="train_5_steps", loss_cpu=losses["cpu"],
+         loss_cuda=losses["cuda"], max_rel_err=rel, rtol=1e-4)
+    if not rel < 1e-4:
+        raise AssertionError(f"train steps: card and CPU losses differ by {rel}")
+
+
+def read_jsonl(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_captured(fn, argv):
+    """``fn(argv)`` with its standard output passed on and returned."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    print(buf.getvalue(), end="", flush=True)
+    return out, buf.getvalue()
+
+
+def exact_resume_check(tmp: str) -> dict:
+    """At full width, from the same init and the same batches: 2N eager
+    steps against N + save + restore + N, against 2N steps in calls of 5
+    (one CUDA graph replayed a sub-step), and against N such steps + save +
+    restore + N eager ones.  Returns the largest weight difference of each."""
+    n = TRAIN["exact_n"]
+    args = aircraft.parse_args(["--so3"])
+    device = torch.device("cuda")
+    loader = iter(BatchLoader(synthetic_planes(128, seed=0), PATH["batch"],
+                              samples=PATH["samples"], seed=0, device=device))
+    batches = torch.stack([next(loader) for _ in range(2 * n)])
+
+    def fresh(k=1):
+        model, process = aircraft.build(args, device)
+        opt = make_optimizer(model.named_parameters(), args.lr)
+        state = TrainState(model, opt, torch.Generator(device=device).manual_seed(5))
+        return state, make_dp_train_step(aircraft.make_loss_fn(model, process), model, opt,
+                                         steps_per_call=k)
+
+    def run(state, step, xs, k=1):
+        for i in range(0, len(xs), k):
+            state, _ = step(state, xs[i] if k == 1 else xs[i : i + k])
+        return state
+
+    def restored(state, name):
+        save_checkpoint(os.path.join(tmp, name), state)
+        out, step = fresh()
+        out = restore_checkpoint(os.path.join(tmp, name), out)
+        assert out.step == n, out.step
+        return out, step
+
+    def diff(a, b):
+        pa, pb = a.model.state_dict(), b.model.state_dict()
+        return max(float((pa[k] - pb[k]).abs().max()) for k in pa)
+
+    full = run(*fresh(), batches)
+    resumed = run(*restored(run(*fresh(), batches[:n]), "exact"), batches[n:])
+    graphed = run(*fresh(5), batches, k=5)
+    graphed_half = run(*fresh(5), batches[:n], k=5)
+    graphed_resumed = run(*restored(graphed_half, "exact_graphed"), batches[n:])
+    sync()
+    return {"resume": diff(full, resumed), "captured": diff(full, graphed),
+            "captured_then_resume": diff(full, graphed_resumed)}
+
+
+def phase_aircraft_train(fwd_ms: float) -> dict:
+    """Aircraft training at full width through ``aircraft.main``; returns
+    each kernel's launches in this phase."""
+    igso3_cuda.launches = mmd_cuda.launches = 0
+    steps = TRAIN["warmup"] + TRAIN["timed"]
+    base = ["--so3", "--dim", str(PATH["dim"]), "--heads", str(PATH["heads"]),
+            "--layers", str(PATH["layers"]), "--batch", str(PATH["batch"]),
+            "--samples", str(PATH["samples"]), "--timesteps", str(PATH["timesteps"])]
+    variants = [("fp32", []), ("bf16", ["--bf16"]), ("fused", ["--opt-impl", "fused"]),
+                ("k8", ["--steps-per-call", "8"]),
+                ("bf16_k8", ["--bf16", "--steps-per-call", "8"])]
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in variants:
+            ckpt, log = os.path.join(tmp, name), os.path.join(tmp, f"{name}.jsonl")
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = aircraft.main(base + extra + [
+                "--steps", str(steps), "--print-every", str(TRAIN["print_every"]),
+                "--ckpt", ckpt, "--log", log])
+            sync()
+            seconds = time.perf_counter() - t0
+            rows = read_jsonl(log)
+            sps = rows[-1]["steps_per_sec"]
+            emit("aircraft_train", variant=name, steps=steps, timed_steps=TRAIN["timed"],
+                 ms_per_step=1e3 / sps, steps_per_sec=sps, forward_ms=fwd_ms,
+                 forward_share=fwd_ms * sps / 1e3, loss_first=rows[0]["loss"],
+                 loss_last=rows[-1]["loss"], test_loss=rows[-1]["test_loss"],
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(), seconds=seconds,
+                 logged_steps=[r["step"] for r in rows])
+            if not all(np.isfinite(r["loss"]) and np.isfinite(r["test_loss"]) for r in rows):
+                raise AssertionError(f"aircraft_train {name}: a loss is not finite: {rows}")
+            if state.step != steps or rows[-1]["step"] != steps:
+                raise AssertionError(f"aircraft_train {name}: step {state.step}, wanted {steps}")
+            if latest_step(ckpt) != steps:
+                raise AssertionError(f"aircraft_train {name}: no checkpoint at step {steps}")
+
+        # the loss falls; a resume continues from the stored step
+        ckpt, log = os.path.join(tmp, "fall"), os.path.join(tmp, "fall.jsonl")
+        n = TRAIN["fall_steps"]
+        common = base + ["--print-every", "1", "--ckpt-every", "100", "--ckpt", ckpt,
+                         "--log", log]
+        _, out = run_captured(aircraft.main, common + ["--steps", str(n)])
+        rows = read_jsonl(log)
+        first = float(np.mean([r["loss"] for r in rows[:10]]))
+        last = float(np.mean([r["loss"] for r in rows[-10:]]))
+        files = sorted(os.listdir(ckpt))
+        more = n + TRAIN["resume_more"]
+        state, _ = run_captured(aircraft.main, common + ["--steps", str(more), "--resume"])
+        resumed = read_jsonl(log)[len(rows):]
+        emit("aircraft_train", run="falling_loss_and_resume", steps=n, loss_first_10=first,
+             loss_last_10=last, test_loss_first=rows[0]["test_loss"],
+             test_loss_last=rows[-1]["test_loss"], checkpoints=files,
+             resumed_first_step=resumed[0]["step"], resumed_last_step=state.step)
+        if len(rows) != n or not all(np.isfinite(r["loss"]) for r in rows + resumed):
+            raise AssertionError("aircraft_train: missing or non-finite loss rows")
+        if not last < first:
+            raise AssertionError(f"aircraft_train: loss did not fall ({first} -> {last})")
+        if files != [f"step_{k:08d}.pt" for k in sorted({*range(100, n + 1, 100), n})[-3:]]:
+            raise AssertionError(f"aircraft_train: checkpoints {files}")
+        if (resumed[0]["step"], state.step, latest_step(ckpt)) != (n + 1, more, more):
+            raise AssertionError(f"aircraft_train: resume ran {resumed[0]['step']}..{state.step}")
+
+        diffs = exact_resume_check(tmp)
+        emit("aircraft_train", run="exact_resume", n=TRAIN["exact_n"], max_abs_diff=diffs,
+             bit_identical=all(d == 0.0 for d in diffs.values()))
+        if any(d != 0.0 for d in diffs.values()):
+            raise AssertionError(f"aircraft_train: weights differ from 2N eager steps: {diffs}")
+
+        # --test reads the checkpoint directory (one chain per shape here)
+        per_shape = aircraft.SAMPLES_PER_SHAPE
+        aircraft.SAMPLES_PER_SHAPE = 1
+        try:
+            t0 = time.perf_counter()
+            res, out = run_captured(aircraft.main, base + ["--test", "--max-shapes",
+                                                           str(PATH["batch"]), "--ckpt", ckpt])
+            seconds = time.perf_counter() - t0
+        finally:
+            aircraft.SAMPLES_PER_SHAPE = per_shape
+        emit("aircraft_train", run="test_on_checkpoint", seconds=seconds, samples=len(res),
+             median_angle=float(np.median(res)))
+        if "no checkpoint found" in out or res.shape != (PATH["batch"],) \
+                or not np.isfinite(res).all():
+            raise AssertionError("aircraft_train: --test did not evaluate the checkpoint")
+
+        # the Heun sampler on the trained weights runs the IGSO(3) kernel
+        device = torch.device("cuda")
+        model, process = aircraft.build(aircraft.parse_args(base), device)
+        if not load_eval_weights(model.eval(), ckpt, device):
+            raise AssertionError("aircraft_train: no weights to sample from")
+    clouds = subsample_points(synthetic_planes(128, seed=2), PATH["samples"], seed=17)
+    proj = PointCloudProj(torch.from_numpy(clouds[: PATH["batch"]]).to(device))
+    before = igso3_cuda.launches
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        rots = process.pf_sample_loop(model, torch.Generator(device=device).manual_seed(3),
+                                      (PATH["batch"],), PATH["heun_steps"], proj, method="heun")
+    sync()
+    heun = igso3_cuda.launches - before
+    emit("aircraft_train", run="pf_heun_on_trained", seconds=time.perf_counter() - t0,
+         launches=heun, median_angle=float(rotation_angle(rots).median()),
+         **check_rotations("pf_heun_on_trained", rots))
+    if heun != 2 * PATH["heun_steps"]:
+        raise AssertionError(f"Heun on the trained weights: {heun} IGSO(3) launches")
+    return {"igso3_logpdf_score": igso3_cuda.launches,
+            "gaussian_kernel_sum": mmd_cuda.launches}
+
+
+def phase_bingham_train() -> dict:
+    """experiments/bingham.py training on the "lcr" preset with the online MMD
+    curve, then --test on its checkpoint; returns each kernel's launches."""
+    igso3_cuda.launches = mmd_cuda.launches = 0
+    steps, every = TRAIN["bingham_steps"], TRAIN["bingham_mmd_every"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, log = os.path.join(tmp, "ck"), os.path.join(tmp, "log.jsonl")
+        t0 = time.perf_counter()
+        curve = bingham.main([BINGHAM_COV, "--steps", str(steps), "--mmd-every", str(every),
+                              "--print-every", str(TRAIN["bingham_print_every"]),
+                              "--out-dir", tmp, "--ckpt", ckpt,
+                              "--log", log])[BINGHAM_COV]
+        sync()
+        seconds = time.perf_counter() - t0
+        train_launches = mmd_cuda.launches
+        rows = read_jsonl(log)
+        # steps/s up to the first evaluation: later rows' clock includes it
+        clean = [r for r in rows if r["step"] <= curve[0]["step"]][-1]
+        emit("bingham_train", steps=steps, seconds=seconds, steps_per_sec=clean["steps_per_sec"],
+             ms_per_step=1e3 / clean["steps_per_sec"], steps_per_sec_at_step=clean["step"],
+             loss_first=rows[0]["loss"], loss_last=rows[-1]["loss"], curve=curve,
+             gaussian_kernel_sum_launches=train_launches,
+             files=sorted(f for f in os.listdir(tmp) if f.endswith(".json")))
+        curve_file = os.path.join(tmp, f"torch_bingham_mmd_curve_{BINGHAM_COV}.json")
+        with open(curve_file) as f:
+            stored = json.load(f)
+        if stored != curve or len(curve) != 2 or curve[-1]["step"] != steps:
+            raise AssertionError(f"bingham_train: curve {curve}, file {stored}")
+        if not all(np.isfinite(c["mmd"]) for c in curve):
+            raise AssertionError(f"bingham_train: MMD not finite: {curve}")
+        if train_launches != 6:
+            raise AssertionError(f"bingham_train: {train_launches} MMD kernel launches, not 6")
+        if not all(np.isfinite(r["loss"]) for r in rows) or latest_step(ckpt) != steps:
+            raise AssertionError("bingham_train: non-finite loss or no final checkpoint")
+        recs, out = run_captured(bingham.main, [BINGHAM_COV, "--test", "--out-dir", tmp,
+                                                "--ckpt", ckpt])
+        rec = recs[BINGHAM_COV][0]
+        emit("bingham_train", run="test_on_checkpoint", mmd=rec["mmd"], passes=rec["passes"],
+             accept_threshold=rec["accept_threshold"], seconds=rec["sample_seconds"],
+             launches=rec["launches"])
+        if "untrained" in out or not np.isfinite(rec["mmd"]):
+            raise AssertionError("bingham_train: --test did not evaluate the checkpoint")
+    return {"igso3_logpdf_score": igso3_cuda.launches,
+            "gaussian_kernel_sum": mmd_cuda.launches}
+
+
 def timed(name: str, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -631,12 +911,19 @@ def main() -> None:
     mmd_check = timed("kernel_check_mmd", phase_mmd_check)
     timed("small_agreement_aircraft", small_cpu_agreement)
     timed("small_agreement_bingham", small_bingham_agreement)
-    aircraft = timed("aircraft_path", phase_path)
+    timed("small_agreement_train", small_train_agreement)
+    aircraft_launches, fwd_ms = timed("aircraft_path", phase_path)
     bing = timed("bingham_path", phase_bingham_path)
     for name, n in bing.items():
         if n == 0:
             raise AssertionError(f"the Bingham path launched no {name} kernel")
-    launches = {k: aircraft[k] + bing[k] for k in aircraft}
+    air_train = timed("aircraft_train", lambda: phase_aircraft_train(fwd_ms))
+    bing_train = timed("bingham_train", phase_bingham_train)
+    if air_train["igso3_logpdf_score"] == 0 or bing_train["gaussian_kernel_sum"] == 0:
+        raise AssertionError(f"the training paths' launches: {air_train}, {bing_train}")
+    by_path = {"aircraft": aircraft_launches, "bingham": bing,
+               "aircraft_train": air_train, "bingham_train": bing_train}
+    launches = {k: sum(p[k] for p in by_path.values()) for k in aircraft_launches}
     main_n = PATH["batch"]
     tm, big = check["timing"][main_n], check["timing"][2**20]
     mid = check["timing"][BINGHAM_N]
@@ -649,8 +936,7 @@ def main() -> None:
         "source": "diffusion_extensions_tpu_torch/csrc/igso3_logpdf_score.cu",
         "replaces": "diffusion_extensions_tpu/ops/igso3_pallas.py:101",
         "launches": launches["igso3_logpdf_score"],
-        "launches_by_path": {"aircraft": aircraft["igso3_logpdf_score"],
-                             "bingham": bing["igso3_logpdf_score"]},
+        "launches_by_path": {p: n["igso3_logpdf_score"] for p, n in by_path.items()},
         "max_abs_err": max(check["worst"]["logf_abs"], check["worst"]["score_abs"]),
         "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None, "n": main_n,
@@ -673,8 +959,7 @@ def main() -> None:
         "source": "diffusion_extensions_tpu_torch/csrc/gaussian_kernel_sum.cu",
         "replaces": "diffusion_extensions_tpu/ops/mmd_pallas.py:112",
         "launches": launches["gaussian_kernel_sum"],
-        "launches_by_path": {"aircraft": aircraft["gaussian_kernel_sum"],
-                             "bingham": bing["gaussian_kernel_sum"]},
+        "launches_by_path": {p: n["gaussian_kernel_sum"] for p, n in by_path.items()},
         "max_abs_err": mmd_check["max_abs_err"],
         "ms": mt["ms"], "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"],
         "bound_by": mt["bound_by"], "library_ms": None, "n": mt["n"], "m": mt["m"],

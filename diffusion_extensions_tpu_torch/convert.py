@@ -5,7 +5,11 @@
 nested dicts of numpy arrays (with or without the top-level ``"params"``
 key) and return a state dict for ``models.planenet.PlaneNet`` or
 ``models.rot_predict.RotPredict``; the ``*_config_from_flax`` functions give
-the constructor arguments.  flax ``Dense`` kernels are (in, out) and are
+the constructor arguments.  ``adam_state_from_optax(mu_np, nu_np, count)``
+maps the two moment trees of an optax Adam state (``ScaleByAdamState`` or the
+JAX package's ``FusedAdamState``) through the same name mappings into a state
+that ``train.optim.Adam.load_state_dict`` takes, so both packages can start
+from one mid-training state.  flax ``Dense`` kernels are (in, out) and are
 transposed for ``nn.Linear``; the attention q/k/v kernels are (dim, heads,
 head_dim) with (heads, head_dim) biases, the output kernel (heads, head_dim,
 dim).  Any missing, extra or mis-shaped leaf raises.
@@ -20,6 +24,7 @@ __all__ = [
     "planenet_config_from_flax",
     "rot_predict_params_from_flax",
     "rot_predict_config_from_flax",
+    "adam_state_from_optax",
 ]
 
 _ENC = "TransformerEncoder_0"
@@ -173,3 +178,22 @@ def rot_predict_params_from_flax(params_np) -> dict[str, torch.Tensor]:
     expected.update({f"{head}/kernel": (d, d_out), f"{head}/bias": (d_out,)})
     mapping.update(_dense(head, "out"))
     return _convert("RotPredict", params_np, expected, mapping)
+
+
+def adam_state_from_optax(mu_np, nu_np, count, state_dtype=torch.float32) -> dict:
+    """Optimizer state for ``train.optim.Adam.load_state_dict`` from the
+    ``mu`` and ``nu`` trees (nested dicts of numpy arrays, shaped as the
+    flax PlaneNet or RotPredict parameter tree they belong to) and the
+    ``count`` of an optax Adam state.  ``state_dtype``: the port
+    optimizer's moment dtype (``torch.bfloat16`` for moments that optax
+    stored in bf16; the cast from float32 is then exact)."""
+    try:
+        planenet_config_from_flax(mu_np)
+        to_state = planenet_params_from_flax
+    except ValueError:
+        to_state = rot_predict_params_from_flax
+    return {
+        "count": torch.tensor(int(count), dtype=torch.int32),
+        "mu": {k: v.to(state_dtype) for k, v in to_state(mu_np).items()},
+        "nu": {k: v.to(state_dtype) for k, v in to_state(nu_np).items()},
+    }

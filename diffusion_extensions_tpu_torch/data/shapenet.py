@@ -1,12 +1,15 @@
-"""ShapeNet point clouds and their synthetic stand-in (counterpart of
-``diffusion_extensions_tpu/data/shapenet.py``; numpy on the host)."""
+"""ShapeNet point clouds, their synthetic stand-in and the host batcher
+(counterpart of ``diffusion_extensions_tpu/data/shapenet.py``; numpy on the
+host, so batches are the JAX package's to the bit for the same seed)."""
 from __future__ import annotations
 
 import os
+from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
-__all__ = ["ShapeNet", "synthetic_planes"]
+__all__ = ["ShapeNet", "synthetic_planes", "BatchLoader", "HostToDevice"]
 
 _SPLIT_FILES = {
     "train": "train_files.txt",
@@ -112,3 +115,87 @@ def synthetic_planes(n: int = 1024, points: int = 2048, seed: int = 0) -> np.nda
         cloud /= np.abs(cloud).max()
         out[i] = cloud
     return out
+
+
+class HostToDevice:
+    """Moves host batches of one shape to ``device``.  For a CUDA device the
+    batch is staged in one of two rotating pinned buffers and copied with
+    ``non_blocking=True`` on the current stream, where the step that reads
+    it is ordered after it; a buffer is rewritten only after the event
+    recorded behind its last copy has passed.  For the CPU (or ``None``)
+    the batch is wrapped as it is."""
+
+    def __init__(self, device=None):
+        self.device = None if device is None else torch.device(device)
+        self._pinned: list = []
+        self._events: list = []
+        self._turn = 0
+
+    def __call__(self, batch: np.ndarray) -> torch.Tensor:
+        if self.device is None or self.device.type != "cuda":
+            return torch.from_numpy(batch)
+        if not self._pinned or self._pinned[0].shape != batch.shape:
+            self._pinned = [torch.empty(batch.shape, dtype=torch.float32).pin_memory()
+                            for _ in range(2)]
+            self._events = [None, None]
+        i = self._turn
+        self._turn = 1 - i
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        self._pinned[i].numpy()[...] = batch
+        out = self._pinned[i].to(self.device, non_blocking=True)
+        self._events[i] = torch.cuda.Event()
+        self._events[i].record()
+        return out
+
+
+class BatchLoader:
+    """Vectorised host batcher: shuffle, per-batch point subsampling, and
+    one batch of device prefetch (the copy of batch i + 1 is queued before
+    batch i is handed out).  Yields (batch, samples, 3) float32 tensors on
+    ``device`` (host tensors when it is ``None``)."""
+
+    def __init__(
+        self,
+        data: np.ndarray,
+        batch: int,
+        samples: Optional[int] = None,
+        seed: int = 0,
+        shuffle: bool = True,
+        drop_last: bool = True,
+        device=None,
+    ):
+        self.data = data
+        self.batch = batch
+        self.samples = samples
+        self.rng = np.random.default_rng(seed)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self._put = HostToDevice(device)
+
+    def _make_batch(self, idx: np.ndarray) -> np.ndarray:
+        clouds = self.data[idx]  # (B, P, 3)
+        if self.samples is not None and self.samples < clouds.shape[1]:
+            cols = self.rng.integers(
+                0, clouds.shape[1], size=(len(idx), self.samples)
+            )
+            clouds = np.take_along_axis(clouds, cols[..., None], axis=1)
+        return clouds
+
+    def epoch(self) -> Iterator[torch.Tensor]:
+        order = np.arange(len(self.data))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        end = len(order) - (len(order) % self.batch if self.drop_last else 0)
+        pending = None
+        for i in range(0, end, self.batch):
+            batch = self._put(self._make_batch(order[i : i + self.batch]))
+            if pending is not None:
+                yield pending
+            pending = batch
+        if pending is not None:
+            yield pending
+
+    def __iter__(self):
+        while True:
+            yield from self.epoch()

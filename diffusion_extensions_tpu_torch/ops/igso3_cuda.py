@@ -179,8 +179,16 @@ def alloc_outputs(shape, device):
 
 def igso3_logpdf_score(t: torch.Tensor, sigma: torch.Tensor):
     """Fused (log f(t; sigma), d/dt log f(t; sigma)); ``t`` and ``sigma``
-    broadcast.  CPU tensors take the plain version; CUDA tensors the kernel."""
+    broadcast.  CPU tensors take the plain version; CUDA tensors the kernel.
+    No gradient is defined (the JAX package's kernel has none either): an
+    input that requires grad raises instead of coming back cut from the
+    graph."""
     global launches
+    if torch.is_grad_enabled() and (t.requires_grad or sigma.requires_grad):
+        raise RuntimeError(
+            "igso3_logpdf_score defines no gradient: call it under torch.no_grad() "
+            "or on detached tensors (igso3_logpdf_score_ref is differentiable)"
+        )
     if t.device.type == "cpu" and sigma.device.type == "cpu":
         return igso3_logpdf_score_ref(t, sigma)
     if t.device.type != "cuda" or sigma.device != t.device:

@@ -219,8 +219,15 @@ def _check(x: torch.Tensor, y: torch.Tensor) -> None:
 def gaussian_kernel_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """sum_{n,m} exp(-sqrt(2) theta(X_n, Y_m)) for (N, 3, 3) and (M, 3, 3)
     rotations: a float32 scalar tensor.  CPU inputs take the plain version;
-    CUDA inputs the kernel."""
+    CUDA inputs the kernel.  No gradient is defined (the JAX package's
+    kernel has none either): an input that requires grad raises instead of
+    coming back cut from the graph."""
     global launches
+    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+        raise RuntimeError(
+            "gaussian_kernel_sum defines no gradient: call it under torch.no_grad() "
+            "or on detached tensors (gaussian_kernel_sum_ref is differentiable)"
+        )
     if x.device.type == "cpu" and y.device.type == "cpu":
         return gaussian_kernel_sum_ref(x, y)
     _check(x, y)  # before any build

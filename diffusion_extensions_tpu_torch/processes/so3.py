@@ -6,7 +6,9 @@ reverse sigma_t = posterior stdev, and the eps = 1 prior) are built once in
 ``SO3Diffusion.create``.  The JAX package's ``lax.scan`` chains are Python
 loops here.  Every sampler takes an optional ``x_init`` (skipping its own
 init draw) and a ``torch.Generator``; ``p_sample`` also takes an optional
-``noise`` rotation so a caller can inject the noise of another run.
+``noise`` rotation so a caller can inject the noise of another run, and the
+training losses (``p_losses``, ``loss``) take optional ``t`` and ``noise``
+for the same reason.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.igso3 import IGSO3Table, igso3_score_vec
+from ..ops.metrics import rmat_dist
 from ..ops.so3 import (
     exp_skewvec,
     haar_rotations,
@@ -74,22 +77,27 @@ def prefix_products(m: torch.Tensor) -> torch.Tensor:
 @dataclass(frozen=True)
 class SO3Diffusion:
     """State = rotation matrices (B, 3, 3); ``denoise_fn(x_in, t) -> (B, 3)``
-    skew-vec noise prediction."""
+    skew-vec noise prediction (``loss_type`` "skewvec") or (B, 3, 3)
+    rotation ("prevstep")."""
 
     schedule: Schedule
     q_table: IGSO3Table  # rows: eps_t = sqrt(1 - alphas_cumprod_t)
     p_table: IGSO3Table  # rows: sigma_t = posterior stdev_t
     prior_table: IGSO3Table  # single row: eps = 1
+    loss_type: str = "skewvec"
     projected: bool = False  # Haar-QR sampler init instead of the eps = 1 prior
 
     @classmethod
     def create(
         cls,
         timesteps: int = 1000,
+        loss_type: str = "skewvec",
         betas=None,
         projected: bool = False,
         device=None,
     ) -> "SO3Diffusion":
+        if loss_type not in ("skewvec", "prevstep"):
+            raise ValueError(f"Unexpected loss_type: {loss_type}")
         schedule = Schedule.create(timesteps, betas, device=device)
         q_eps = schedule.sqrt_one_minus_alphas_cumprod.cpu().numpy()
         p_sigma = schedule.posterior_stdev.cpu().numpy()
@@ -99,6 +107,7 @@ class SO3Diffusion:
             q_table=IGSO3Table.from_eps(q_eps, dev),
             p_table=IGSO3Table.from_eps(np.maximum(p_sigma, 1e-10), dev),
             prior_table=IGSO3Table.from_eps(np.ones((1,), np.float32), dev),
+            loss_type=loss_type,
             projected=projected,
         )
 
@@ -379,7 +388,38 @@ class SO3Diffusion:
         out = self._final_estimate(denoise_fn, X[-1], projection)
         return (out, k) if return_sweeps else out
 
+    # -- training --------------------------------------------------------
+    def p_losses(self, denoise_fn, generator, x_start, t, projection=None, noise=None):
+        """The training loss at timesteps ``t``: "skewvec" is the MSE of the
+        model's output against log(noise) / eps_t, "prevstep" the squared
+        ``rmat_dist`` of its output rotation to x_noisy^T posterior_mean.
+        ``noise`` (B, 3, 3) is drawn from ``generator`` unless given; it
+        carries no gradient."""
+        eps = extract(self.schedule.sqrt_one_minus_alphas_cumprod, t)
+        if noise is None:
+            noise = self.sample_noise(generator, t)
+        noise = noise.detach()
+        x_noisy = self.q_sample(x_start, t, noise)
+        x_in = projection(x_noisy) if projection is not None else x_noisy
+        x_recon = denoise_fn(x_in, t)
 
-def ProjectedSO3Diffusion(timesteps: int = 1000, betas=None, device=None) -> SO3Diffusion:
+        if self.loss_type == "skewvec":
+            descaled_noise = log_rmat_vec(noise) / eps[..., None]
+            return torch.mean((x_recon - descaled_noise) ** 2)
+        posterior_mean, _, _ = self.q_posterior(x_start, x_noisy, t)
+        step = rmul(x_noisy.transpose(-1, -2), posterior_mean)
+        return torch.mean(rmat_dist(x_recon, step) ** 2)
+
+    def loss(self, denoise_fn, generator, x_start, projection=None, t=None, noise=None):
+        """``p_losses`` at ``t`` uniform on [0, T), drawn from ``generator``
+        unless given."""
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (x_start.shape[0],),
+                              generator=generator, device=self.device)
+        return self.p_losses(denoise_fn, generator, x_start, t, projection, noise)
+
+
+def ProjectedSO3Diffusion(timesteps: int = 1000, loss_type: str = "skewvec", betas=None,
+                          device=None) -> SO3Diffusion:
     """The same process with the projection hook and Haar-QR sampler init."""
-    return SO3Diffusion.create(timesteps, betas, projected=True, device=device)
+    return SO3Diffusion.create(timesteps, loss_type, betas, projected=True, device=device)

@@ -287,5 +287,9 @@ def test_bingham_driver_end_to_end(tmp_path, monkeypatch):
 
 
 def test_bingham_driver_without_test_flag_exits():
-    with pytest.raises(SystemExit, match="later slice"):
-        bingham.main(["lcr"])
+    """Without ``--test`` ``main`` trains, on the card unless ``--device``
+    says otherwise: with no card it raises, it does not move to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a card")
+    with pytest.raises((RuntimeError, AssertionError)):
+        bingham.main(["lcr", "--steps", "1"])

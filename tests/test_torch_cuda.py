@@ -276,3 +276,48 @@ def test_mmd_kernel_refuses_bad_inputs(cuda):
         mmd_cuda.gaussian_kernel_sum(x[:0], x)
     with pytest.raises(ValueError):
         mmd_cuda.gaussian_kernel_sum(x.reshape(4, 9), x)
+
+
+def test_captured_train_steps_give_the_bits_of_eager_steps(cuda):
+    """``steps_per_call=4`` on the card replays one CUDA graph a sub-step:
+    12 steps in three calls give the weights of 12 eager steps to the bit,
+    from the same init, batches and generator seed, and the generator state
+    they leave behind continues an eager run to the bit."""
+    from diffusion_extensions_tpu_torch.models.rot_predict import RotPredict
+    from diffusion_extensions_tpu_torch.parallel.dp import make_dp_train_step
+    from diffusion_extensions_tpu_torch.processes.so3 import SO3Diffusion
+    from diffusion_extensions_tpu_torch.train.optim import make_optimizer
+    from diffusion_extensions_tpu_torch.train.state import TrainState
+
+    proc = SO3Diffusion.create(100, device=cuda)
+    batches = torch.stack([_rots(64, 40 + i, cuda) for i in range(16)])
+
+    def fresh(k):
+        torch.manual_seed(0)
+        model = RotPredict(65, "skewvec").to(cuda)
+        opt = make_optimizer(model.named_parameters(), 1e-3, clip=1.0)
+        step = make_dp_train_step(lambda g, x: proc.loss(model, g, x), model, opt,
+                                  steps_per_call=k, log_norms=True)
+        return TrainState(model, opt, torch.Generator(device=cuda).manual_seed(3)), step
+
+    eager, step1 = fresh(1)
+    for x in batches:
+        eager, m1 = step1(eager, x)
+        if eager.step == 12:
+            at_12 = [p.detach().clone() for p in eager.model.parameters()]
+            m1_12 = {k: float(v) for k, v in m1.items()}
+    graphed, step4 = fresh(4)
+    for i in range(0, 12, 4):
+        graphed, m4 = step4(graphed, batches[i : i + 4])
+    torch.cuda.synchronize()
+    assert graphed.step == 12
+    for p, q in zip(graphed.model.parameters(), at_12):
+        assert torch.equal(p, q)
+    assert {k: float(v) for k, v in m4.items()} == m1_12
+    # the last four steps eagerly from the graphed state: the generator is where it should be
+    model = graphed.model
+    tail = make_dp_train_step(lambda g, x: proc.loss(model, g, x), model, graphed.optimizer)
+    for x in batches[12:]:
+        graphed, _ = tail(graphed, x)
+    for p, q in zip(graphed.model.parameters(), eager.model.parameters()):
+        assert torch.equal(p, q)

@@ -336,3 +336,25 @@ def test_kernel_source_holds_the_python_constants():
         igso3_cuda.CHEAP_MIN_VAR, igso3_cuda.CHEAP_MAX_VAR)
     assert (consts["kNearPiMinU"], consts["kNearPiGap"]) == (
         igso3_cuda.NEAR_PI_MIN_U, igso3_cuda.NEAR_PI_GAP)
+
+
+def test_kernel_wrapper_defines_no_gradient():
+    """``igso3_logpdf_score`` raises on an input that requires grad (on the
+    CPU before it takes the plain path, on the card before it launches),
+    instead of returning tensors cut from the graph; under ``no_grad`` and
+    on detached tensors it runs, and the plain version differentiates."""
+    from diffusion_extensions_tpu_torch.ops import igso3_cuda
+
+    t = torch.linspace(0.1, 3.0, 8).requires_grad_(True)
+    sigma = torch.full((8,), 0.5)
+    with pytest.raises(RuntimeError, match="defines no gradient"):
+        igso3_cuda.igso3_logpdf_score(t, sigma)
+    with pytest.raises(RuntimeError, match="defines no gradient"):
+        igso3_cuda.igso3_logpdf_score(t.detach(), sigma.clone().requires_grad_(True))
+    with torch.no_grad():
+        logf, score = igso3_cuda.igso3_logpdf_score(t, sigma)
+    ref_logf, ref_score = igso3_cuda.igso3_logpdf_score(t.detach(), sigma)
+    assert torch.equal(logf, ref_logf) and torch.equal(score, ref_score)
+    out, _ = igso3_cuda.igso3_logpdf_score_ref(t, sigma)
+    out.sum().backward()
+    np.testing.assert_allclose(t.grad.numpy(), ref_score.numpy(), rtol=1e-3, atol=1e-4)

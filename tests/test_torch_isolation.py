@@ -37,6 +37,7 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
+print(" ".join(names))
 print(len(names))
 """
 
@@ -47,5 +48,11 @@ def test_port_and_chip_smoke_import_no_jax():
         timeout=300,
     )
     assert res.returncode == 0, res.stderr
-    # package + ops(7) + processes(3) + models(5) + data(3) + experiments(3) + convert
-    assert int(res.stdout.strip().splitlines()[-1]) >= 23
+    # package + ops(7) + processes(3) + models(5) + data(4) + experiments(3) + convert
+    # + train(4) + parallel(2)
+    lines = res.stdout.strip().splitlines()
+    assert int(lines[-1]) >= 30
+    imported = set(lines[-2].split())
+    pkg = "diffusion_extensions_tpu_torch"
+    assert {f"{pkg}.train.optim", f"{pkg}.train.state", f"{pkg}.train.loop",
+            f"{pkg}.parallel.dp", f"{pkg}.data.native"} <= imported

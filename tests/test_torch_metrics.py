@@ -256,3 +256,24 @@ def test_tensor_core_features_give_the_four_bilinears(pairs):
     split = sum(torch.einsum("nsk,msk->snm", a.double(), b.double())
                 for a, b in ((xh, yl), (xl, yh), (xh, yh)))
     np.testing.assert_allclose(split, want, rtol=0, atol=1e-6)
+
+
+def test_kernel_sum_wrapper_defines_no_gradient():
+    """``gaussian_kernel_sum`` (and ``mmd`` through it) raises on an input
+    that requires grad instead of returning a value cut from the graph;
+    under ``no_grad`` and on detached tensors it runs, and the plain version
+    differentiates."""
+    from diffusion_extensions_tpu_torch.ops import mmd_cuda
+
+    q = np.random.default_rng(0).standard_normal((2, 6, 3, 3)).astype(np.float32)
+    x, y = (torch.linalg.qr(torch.from_numpy(a))[0] for a in q)
+    x.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="defines no gradient"):
+        mmd_cuda.gaussian_kernel_sum(x, y)
+    with pytest.raises(RuntimeError, match="defines no gradient"):
+        mmd_cuda.mmd_cuda(y, x)
+    with torch.no_grad():
+        got = mmd_cuda.gaussian_kernel_sum(x, y)
+    assert torch.equal(got, mmd_cuda.gaussian_kernel_sum(x.detach(), y))
+    mmd_cuda.gaussian_kernel_sum_ref(x, y).backward()
+    assert torch.isfinite(x.grad).all() and float(x.grad.abs().max()) > 0
