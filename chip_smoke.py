@@ -6,7 +6,7 @@
 Builds every CUDA kernel of the port from the sources in this checkout (one
 nvcc per source, all started together; prints what ptxas says of each and,
 where cuobjdump is there, the SASS instruction counts), holds each against
-its plain PyTorch version on the card, then drives four paths at full size,
+its plain PyTorch version on the card, then drives six paths at full size,
 each with the kernels' launch counts set to 0 just before it and read just
 after:
 
@@ -21,22 +21,37 @@ after:
   T = 1000, 20,000 chains per sampler row, and MMD against 20,000 target
   rotations, whose three 20k x 20k sums run the MMD kernel;
 * aircraft training, ``experiments/aircraft.py`` at the same full width:
-  10 warm-up + 100 timed steps in fp32, with ``--bf16``, with ``--opt-impl
+  10 warm-up + 50 timed steps in fp32, with ``--bf16``, with ``--opt-impl
   fused``, with ``--steps-per-call 8`` (one CUDA graph replayed a step) and
-  with ``--bf16 --steps-per-call 8``; 200 steps whose loss must
+  with ``--bf16 --steps-per-call 8``; 100 steps whose loss must
   fall, a ``--resume`` of 20 more; 2N steps against N + save + restore + N
   and against the same steps replayed from a CUDA graph, to the bit, ``--test`` on the written checkpoint (one chain per
   shape) and 32 Heun-50 chains on the trained weights (100 launches of the
   IGSO(3) kernel);
 * Bingham training, ``experiments/bingham.py lcr --steps 2000 --mmd-every
   1000``: two online MMD evaluations (6 launches of the MMD kernel), the
-  curve file, then ``--test`` on the written checkpoint.
+  curve file, then ``--test`` on the written checkpoint;
+* the protein docking path at the headline width (ProtNet dim 1024 / 8 heads
+  / t_depth 12 / c_depth 8 with frame_pool, cross_depth 2, rel_frame and
+  equiv_head: 163,077,652 parameters, seeded init, its output layer scaled
+  by 1e-2 for sampling; batch 16 over the 16 synthetic pairs;
+  ProjectedSE3Diffusion T = 1000, clip_shift 75): the
+  forward in float32 and bf16, then ``experiments/protein.py --test --bf16``
+  with DDIM-50 (64 poses), probability-flow 50, Heun-25 (200 launches of the
+  IGSO(3) kernel), Picard-10 and the 1000-step ancestral chain (16 poses);
+* protein training at the same width: 10 + 96 steps with ``--bf16`` and
+  16 + 96 with ``--bf16 --opt-impl fused --opt-state-dtype bf16
+  --steps-per-call 8``, 200 steps of the latter whose loss must fall,
+  ``--test`` on that checkpoint, 2N replayed steps against N + save +
+  restore + N, and two epochs of ``--epoch-accum``.
 
-Two small runs hold the card against the CPU for sampling, one for training.
+Three small runs hold the card against the CPU for sampling, two for training
+(the protein one for all three).
 Every phase prints JSON lines, and the seconds each phase took; any failure
 raises and exits non-zero.  The last lines are the kernels' summary, the
 card's name and power limit as nvidia-smi reports them, and
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}.  The kernels' summary has each kernel's
+launches on each path (``launches_by_path``).
 
 Imports torch, numpy and the port only.  There is no CPU path: without a
 CUDA device the script exits non-zero before printing any result.
@@ -47,6 +62,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -56,18 +72,31 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from diffusion_extensions_tpu_torch.data.pdb import (
+    pad_prot_batch,
+    synthetic_prot_pair,
+    to_device,
+)
 from diffusion_extensions_tpu_torch.data.shapenet import BatchLoader, synthetic_planes
 from diffusion_extensions_tpu_torch.data.synthetic import bingham_dist
-from diffusion_extensions_tpu_torch.experiments import aircraft, bingham
+from diffusion_extensions_tpu_torch.experiments import aircraft, bingham, protein
 from diffusion_extensions_tpu_torch.experiments.aircraft import subsample_points
 from diffusion_extensions_tpu_torch.models.planenet import PlaneNet
-from diffusion_extensions_tpu_torch.models.projections import PointCloudProj
+from diffusion_extensions_tpu_torch.models.projections import PointCloudProj, ProtProjection
+from diffusion_extensions_tpu_torch.models.protnet import ProtNet
 from diffusion_extensions_tpu_torch.models.rot_predict import RotPredict
 from diffusion_extensions_tpu_torch.ops import _build, igso3_cuda, mmd_cuda
 from diffusion_extensions_tpu_torch.ops.igso3 import IsotropicGaussianSO3, igso3_log_density
 from diffusion_extensions_tpu_torch.ops.metrics import mmd
-from diffusion_extensions_tpu_torch.ops.so3 import exp_skewvec, quat_to_rmat, rotation_angle
+from diffusion_extensions_tpu_torch.ops.se3 import AffineT
+from diffusion_extensions_tpu_torch.ops.so3 import (
+    exp_skewvec,
+    haar_rotations,
+    quat_to_rmat,
+    rotation_angle,
+)
 from diffusion_extensions_tpu_torch.parallel.dp import make_dp_train_step
+from diffusion_extensions_tpu_torch.processes.se3 import ProjectedSE3Diffusion
 from diffusion_extensions_tpu_torch.processes.so3 import ProjectedSO3Diffusion, SO3Diffusion
 from diffusion_extensions_tpu_torch.train.optim import make_optimizer
 from diffusion_extensions_tpu_torch.train.state import (
@@ -107,14 +136,44 @@ BINGHAM_COV, BINGHAM_N = "lcr", 20_000
 # training phases: timed steps after the warm-up, the logging interval of the
 # timed runs (each logged row also runs the frozen validation probe, one
 # forward), the length of the falling-loss run, its resume, and N of the
-# N + save + restore + N check
-TRAIN = dict(warmup=10, timed=100, print_every=22, fall_steps=200, resume_more=20,
+# N + save + restore + N check.  The aircraft depths were halved (100 timed
+# steps, 200 falling) to make room for the protein phases
+TRAIN = dict(warmup=10, timed=50, print_every=20, fall_steps=100, resume_more=20,
              exact_n=10, bingham_steps=2000, bingham_mmd_every=1000,
              bingham_print_every=100)
 # Bingham rows: kernel launches each row must make (3 MMD sums per row)
 BINGHAM_IGSO3 = {"ancestral_1000": 0, "ddim_50": 0, "ddim_20": 0, "pf_flow_50": 0,
                  "pf_flow_10": 0, "pf_heun_25_karras": 50, "pf_euler_50_karras": 50,
                  "ddim_50_picard": 0}
+# protein docking at the headline width: the JAX package's headline arm
+# (--se3 --batch 16 --frame-pool --cross-depth 2 --rel-frame --equiv-head
+# --bf16), seeded init, the driver's 16 synthetic pairs (120 / 60 residues)
+PROTEIN = dict(dim=1024, heads=8, t_depth=12, c_depth=8, cross_depth=2, batch=16,
+               timesteps=1000, params=163_077_652, receptor=120, ligand=60)
+PROTEIN_ARGV = ["--se3", "--bf16", "--dim", "1024", "--heads", "8", "--t_depth", "12",
+                "--c_depth", "8", "--frame-pool", "--cross-depth", "2", "--rel-frame",
+                "--equiv-head", "--batch", "16", "--timesteps", "1000",
+                "--data-root", "/nonexistent"]
+# --test rows: (name, flags, samples per pose, model evaluations a chain, IGSO(3)
+# launches).  The ancestral chain runs one sample per pose (16 poses): four
+# would add ~20 s to the script
+PROTEIN_ROWS = [
+    ("ddim_50", ["--sampler", "ddim", "--sampler-steps", "50"], 4, 51, 0),
+    ("pf_flow_50", ["--sampler", "pf", "--sampler-steps", "50"], 4, 51, 0),
+    ("pf_heun_25", ["--sampler", "pf", "--pf-method", "heun", "--sampler-steps", "25"], 4, 51,
+     2 * 25 * 4),
+    ("picard_10", ["--sampler", "picard", "--sampler-steps", "10"], 4, None, 0),
+    ("ancestral_1000", [], 1, 1000, 0),
+]
+# the sampler rows evaluate the seeded init with its output layer scaled by
+# this: at the init's own scale an untrained head's predicted shift moves the
+# ligand, whose pooled position feeds the head back, and the shift grows
+# ~10x a chain step until float32 overflows (measured on the CPU at dim 1024)
+PROTEIN_HEAD_SCALE = 1e-2
+# protein training: timed steps after the warm-up (bench.py's protein_train_b16
+# protocol), the falling-loss run, N of N + save + restore + N, epochs of
+# --epoch-accum
+PROTEIN_TRAIN = dict(timed=96, fall_steps=200, exact_n=8, accum_epochs=2)
 
 
 def emit(phase: str, **fields) -> None:
@@ -181,6 +240,33 @@ def planenet_flops(dim: int, layers: int, batch: int, points: int, dff: int = 20
     per_token = 2 * (3 * half + half * half) + 2 * (dim + dim * dim)
     per_token += layers * (2 * (4 * dim * dim + 2 * dim * dff) + 4 * points * dim)
     return float(per_token * batch * points)
+
+
+def protein_flops(dim: int, heads: int, t_depth: int, c_depth: int, cross_depth: int,
+                  batch: int, lr: int, ll: int, dff: int = 2048) -> float:
+    """Matmul FLOPs of one ProtNet forward (``planenet_flops``'s counting):
+    per token the residue conv (k = 3), both Sirens, the fused encoder (its
+    q/k/v/out and feed-forward, QK^T and AV over all lr + ll keys of the
+    block-masked pass) and the poolings' projections; per round the two
+    cross layers (queries of one chain, keys and values of the other);
+    per pair the head (equiv_head, frame_pool, rel_frame)."""
+    pos, ang = dim // 2, dim // 4
+    res = dim - pos - ang
+    n = lr + ll
+    per_token = 2 * 3 * (21 * dim + (c_depth - 2) * dim * dim + dim * res)
+    per_token += 2 * (3 * pos + pos * pos) + 2 * (9 * ang + ang * ang)
+    per_token += t_depth * (2 * (4 * dim * dim + 2 * dim * dff) + 4 * n * dim)
+    per_token += 2 * (dim + dim * dim) + 2 * dim + 2 * 4 * dim  # PoolRN, PoolPos, PoolFrame
+    flops = float(per_token * batch * n) + 2 * 2 * dim * batch * lr  # + the moment gate
+
+    def cross(q, kv):
+        return (q * (2 * (2 * dim * dim + 2 * dim * dff) + 4 * kv * dim)
+                + kv * 2 * 2 * dim * dim)
+
+    flops += cross_depth * batch * (cross(lr, ll) + cross(ll, lr))
+    head_in = 3 * dim + 6 + 78 + 72 + 36
+    flops += batch * 2 * (head_in * dim + 3 * dim * dim + 6 * dim)
+    return flops
 
 
 def kernel_inputs(n: int, seed: int):
@@ -274,7 +360,7 @@ def allocations() -> int:
 def phase_kernel_check() -> dict:
     """The kernel against its plain version on the card, then timings."""
     cases = {}
-    for n in (PATH["batch"], BINGHAM_N, 1000, 2**20 + 37):
+    for n in (PROTEIN["batch"], PATH["batch"], BINGHAM_N, 1000, 2**20 + 37):
         cases[str(n)] = kernel_inputs(n, seed=n)
     t7 = torch.linspace(0.1, 3.0, 7, device="cuda").reshape(7, 1)
     cases["(7,1)x(1,)"] = (t7, torch.tensor([0.5], device="cuda"))
@@ -345,7 +431,7 @@ def phase_kernel_check() -> dict:
     # ms / plain_ms: device time per call (CUDA graph replay);
     # call_ms / plain_call_ms: per eager call from Python, what a chain pays
     timing = {}
-    shapes = [(n, False) for n in (PATH["batch"], BINGHAM_N, 2**20)]
+    shapes = [(n, False) for n in (PROTEIN["batch"], PATH["batch"], BINGHAM_N, 2**20)]
     shapes += [(PATH["log_prob_n"], True), (2**20, True)]
     for n, one_sigma in shapes:
         t, s = kernel_inputs(n, seed=1)
@@ -897,6 +983,254 @@ def phase_bingham_train() -> dict:
             "gaussian_kernel_sum": mmd_cuda.launches}
 
 
+def small_protein_agreement() -> None:
+    """The protein slice on the card against the same on the CPU: ProtNet
+    dim 64 / 4 heads / t_depth 2 / c_depth 3 with every flag (frame_pool,
+    cross_depth 2, rel_frame, equiv_head), float32, one seeded init with its
+    output layer scaled by 0.1, 4 synthetic pairs of 40 / 20 residues.  The
+    forward: rtol 1e-4 of its largest output; a DDIM-10 chain at T = 50 from
+    one x_init: 1e-3 on rotation entries and of 1 + the largest |shift|; 5
+    Adam steps (lr 1e-3) on the same batches, t and noise (drawn once on the
+    CPU): each loss rtol 1e-4."""
+    cfg = dict(dim=64, heads=4, t_depth=2, c_depth=3, frame_pool=True, cross_depth=2,
+               rel_frame=True, equiv_head=True)
+    torch.manual_seed(13)
+    init = ProtNet(**cfg)
+    with torch.no_grad():
+        init.head_out.weight.mul_(0.1)
+        init.head_out.bias.mul_(0.1)
+    rng = np.random.default_rng(13)
+    batch_np = pad_prot_batch([synthetic_prot_pair(rng, 40 - i, 20 - i) for i in range(4)])
+    t_fwd = torch.tensor([0, 10, 30, 49])
+    x_init = AffineT(haar_rotations(torch.Generator().manual_seed(14), (4,)),
+                     torch.randn(4, 3, generator=torch.Generator().manual_seed(15)))
+    proc_cpu = ProjectedSE3Diffusion(50, clip_shift=75.0, device="cpu")
+    gen = torch.Generator().manual_seed(16)
+    t_train = torch.randint(0, 50, (5, 4), generator=gen)
+    noise = [proc_cpu.sample_noise(gen, t_train[i]) for i in range(5)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = ProtNet(**cfg)
+        model.load_state_dict(init.state_dict())
+        model = model.to(dev)
+        proc = proc_cpu if dev == "cpu" else ProjectedSE3Diffusion(50, clip_shift=75.0,
+                                                                   device=dev)
+        batch = to_device(batch_np, dev)
+        proj = ProtProjection(batch)
+        with torch.inference_mode():
+            fwd = model.eval()(proj(AffineT.identity((4,), device=dev)), t_fwd.to(dev))
+            chain = proc.ddim_sample_loop(model, None, (4,), 10, proj,
+                                          x_init=AffineT(x_init.rot.to(dev), x_init.shift.to(dev)))
+        opt = make_optimizer(model.train().named_parameters(), 1e-3)
+        step = make_dp_train_step(protein.make_loss_fn(model, proc), model, opt)
+        state = TrainState(model, opt, torch.Generator(device=dev))
+        losses = []
+        for i in range(5):
+            state, m = step(state, (batch, t_train[i].to(dev),
+                                    (noise[i].rot.to(dev), noise[i].shift.to(dev))))
+            losses.append(float(m["loss"]))
+        outs[dev] = (torch.cat((fwd.rot_g, fwd.shift_g), -1).cpu(), chain.rot.cpu(),
+                     chain.shift.cpu(), losses)
+    (f_c, r_c, s_c, l_c), (f_g, r_g, s_g, l_g) = outs["cpu"], outs["cuda"]
+    fwd_err = float((f_c - f_g).abs().max()) / float(f_c.abs().max())
+    rot_err = float((r_c - r_g).abs().max())
+    shift_err = float((s_c - s_g).abs().max()) / (1.0 + float(s_c.abs().max()))
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(l_c, l_g))
+    emit("small_agreement", run="protein", forward_rel_err=fwd_err, forward_rtol=1e-4,
+         ddim_10_rot_err=rot_err, ddim_10_shift_rel_err=shift_err, chain_tol=1e-3,
+         loss_cpu=l_c, loss_cuda=l_g, loss_max_rel_err=loss_err, loss_rtol=1e-4)
+    if not (fwd_err < 1e-4 and rot_err < 1e-3 and shift_err < 1e-3 and loss_err < 1e-4):
+        raise AssertionError(f"protein: card and CPU disagree: forward {fwd_err}, chain "
+                             f"{rot_err} / {shift_err}, losses {loss_err}")
+
+
+def phase_protein_path(tmp: str) -> dict:
+    """The protein docking path at the headline width: the forward's time in
+    float32 and bf16, then experiments/protein.py --test --bf16 with each
+    sampler row (the seeded init, its output layer scaled by
+    PROTEIN_HEAD_SCALE, passed as a state dict; records into ``tmp``);
+    returns each kernel's launches in this phase."""
+    device = torch.device("cuda")
+    torch.manual_seed(0)
+    with torch.device(device):
+        model = ProtNet(dim=PROTEIN["dim"], heads=PROTEIN["heads"], t_depth=PROTEIN["t_depth"],
+                        c_depth=PROTEIN["c_depth"], frame_pool=True,
+                        cross_depth=PROTEIN["cross_depth"], rel_frame=True,
+                        equiv_head=True).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != PROTEIN["params"]:
+        raise AssertionError(f"ProtNet at the headline width has {n_params} parameters")
+    rng = np.random.default_rng(0)
+    pairs = [synthetic_prot_pair(rng, PROTEIN["receptor"], PROTEIN["ligand"])
+             for _ in range(PROTEIN["batch"])]
+    batch = to_device(pad_prot_batch(pairs), device)
+    x_in = ProtProjection(batch)(AffineT.identity((PROTEIN["batch"],), device=device))
+    t_in = torch.full((PROTEIN["batch"],), 500, device=device)
+    flops = protein_flops(PROTEIN["dim"], PROTEIN["heads"], PROTEIN["t_depth"],
+                          PROTEIN["c_depth"], PROTEIN["cross_depth"], PROTEIN["batch"],
+                          PROTEIN["receptor"], PROTEIN["ligand"])
+    fwd = {}
+    with torch.inference_mode():
+        for name, bf16 in (("fp32", False), ("bf16", True)):
+            model.bf16 = bf16
+            ms = time_cuda(lambda: model(x_in, t_in), 10, warmup=3)
+            fwd[name] = dict(ms=ms, tflops=flops / ms / 1e9)
+    emit("protein_setup", forward_gflop=flops / 1e9,
+         forward_ms_fp32=fwd["fp32"]["ms"], forward_tflops_fp32=fwd["fp32"]["tflops"],
+         forward_ms_bf16=fwd["bf16"]["ms"], forward_tflops_bf16=fwd["bf16"]["tflops"],
+         **PROTEIN)
+    with torch.no_grad():
+        model.head_out.weight.mul_(PROTEIN_HEAD_SCALE)
+        model.head_out.bias.mul_(PROTEIN_HEAD_SCALE)
+    weights = os.path.join(tmp, "init_head_scaled.pt")
+    torch.save(model.state_dict(), weights)
+    del model, x_in
+    torch.cuda.empty_cache()
+
+    igso3_cuda.launches = mmd_cuda.launches = 0
+    samples = protein.SAMPLES
+    try:
+        for name, flags, per_pose, evals, launches in PROTEIN_ROWS:
+            protein.SAMPLES = per_pose
+            rec, out = run_captured(protein.main, PROTEIN_ARGV + flags + [
+                "--test", "--ckpt", weights, "--out-dir", tmp])
+            emit("protein_run", sampler=name, seconds=rec["sample_seconds"],
+                 model_evals=rec["model_evals"], launches=rec["launches"], poses=rec["poses"],
+                 samples_per_pose=per_pose, sweeps=rec["sweeps"], orth_err=rec["orth_err"],
+                 det_err=rec["det_err"], angle_p50=float(np.median(rec["angles"])),
+                 shift_p50=float(np.median(rec["shifts"])))
+            if evals is None:  # Picard: one batched call a sweep, then the final estimate
+                evals = max(rec["sweeps"]) + 1
+            ok = (rec["finite"] and rec["orth_err"] < 1e-4 and rec["det_err"] < 1e-4
+                  and rec["poses"] == PROTEIN["batch"] * per_pose
+                  and rec["model_evals"] == evals and rec["launches"] == launches
+                  and "no checkpoint found" not in out)
+            if not ok:
+                raise AssertionError(f"protein row {name}: "
+                                     f"{ {k: v for k, v in rec.items() if k not in ('angles', 'shifts')} }")
+    finally:
+        protein.SAMPLES = samples
+    total = {"igso3_logpdf_score": igso3_cuda.launches,
+             "gaussian_kernel_sum": mmd_cuda.launches}
+    if total["igso3_logpdf_score"] == 0:
+        raise AssertionError("the protein path launched no IGSO(3) kernel")
+    return total
+
+
+def protein_exact_resume(tmp: str) -> dict:
+    """At the headline width with the production flags (bf16, fused Adam with
+    bf16 moments, K = 8: one CUDA graph replayed a step): 2N replayed steps
+    against N + save + restore + N, from the same init and batches.
+    Returns the largest weight difference."""
+    n = PROTEIN_TRAIN["exact_n"]
+    args = protein.parse_args(PROTEIN_ARGV + ["--opt-impl", "fused", "--opt-state-dtype",
+                                              "bf16", "--steps-per-call", str(n)])
+    device = torch.device("cuda")
+    pairs = protein.load_pairs(args)
+    gen = protein.batch_stream(pairs, args, np.random.default_rng(0))
+    groups = [to_device(protein.stack_batches([next(gen) for _ in range(n)]), device)
+              for _ in range(2)]
+
+    def fresh():
+        model, process = protein.build(args, device)
+        opt = make_optimizer(model.named_parameters(), args.lr, impl="fused", state_dtype="bf16")
+        state = TrainState(model, opt, torch.Generator(device=device).manual_seed(5))
+        return state, make_dp_train_step(protein.make_loss_fn(model, process), model, opt,
+                                         steps_per_call=n)
+
+    full, step = fresh()
+    for g in groups:
+        full, _ = step(full, g)
+    half, step = fresh()
+    half, _ = step(half, groups[0])
+    save_checkpoint(os.path.join(tmp, "exact"), half)
+    del half, step
+    resumed, step = fresh()
+    resumed = restore_checkpoint(os.path.join(tmp, "exact"), resumed)
+    assert resumed.step == n, resumed.step
+    resumed, _ = step(resumed, groups[1])
+    sync()
+    pa, pb = full.model.state_dict(), resumed.model.state_dict()
+    return {"resume_replayed": max(float((pa[k] - pb[k]).abs().max()) for k in pa)}
+
+
+def phase_protein_train(tmp: str) -> dict:
+    """Protein training at the headline width through ``protein.main``;
+    returns each kernel's launches in this phase."""
+    igso3_cuda.launches = mmd_cuda.launches = 0
+    timed = PROTEIN_TRAIN["timed"]
+    production = ["--opt-impl", "fused", "--opt-state-dtype", "bf16"]
+    # (name, flags, warm-up steps: 10 at K = 1, two calls at K = 8)
+    variants = [("bf16", ["--steps-per-call", "1"], 10),
+                ("bf16_fused_bf16moments_k8", production + ["--steps-per-call", "8"], 16)]
+    for name, extra, warm in variants:
+        steps = warm + timed
+        ckpt, log = os.path.join(tmp, name), os.path.join(tmp, f"{name}.jsonl")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = protein.main(PROTEIN_ARGV + extra + [
+            "--steps", str(steps), "--print-every", str(steps), "--ckpt", ckpt, "--log", log])
+        seconds = time.perf_counter() - t0
+        rows = read_jsonl(log)
+        sps = rows[-1]["steps_per_sec"]
+        emit("protein_train", variant=name, steps=steps, timed_steps=timed,
+             ms_per_step=1e3 / sps, steps_per_sec=sps, loss_last=rows[-1]["loss"],
+             grad_norm=rows[-1]["grad_norm"], peak_memory_bytes=torch.cuda.max_memory_allocated(),
+             seconds=seconds)
+        if state.step != steps or latest_step(ckpt) != steps or not np.isfinite(rows[-1]["loss"]):
+            raise AssertionError(f"protein_train {name}: step {state.step}, rows {rows}")
+        del state
+        shutil.rmtree(ckpt)
+
+    # the loss falls (a row a call of 8: the last sub-step's loss), then --test
+    # on the checkpoint
+    ckpt, log = os.path.join(tmp, "fall"), os.path.join(tmp, "fall.jsonl")
+    n = PROTEIN_TRAIN["fall_steps"]
+    run_captured(protein.main, PROTEIN_ARGV + production + [
+        "--steps-per-call", "8", "--steps", str(n), "--print-every", "1", "--ckpt", ckpt,
+        "--log", log])
+    rows = read_jsonl(log)
+    first = float(np.mean([r["loss"] for r in rows[:5]]))
+    last = float(np.mean([r["loss"] for r in rows[-5:]]))
+    emit("protein_train", run="falling_loss", steps=n, rows=len(rows), loss_first_5_rows=first,
+         loss_last_5_rows=last)
+    if len(rows) != n // 8 or not all(np.isfinite(r["loss"]) for r in rows) or not last < first:
+        raise AssertionError(f"protein_train: loss did not fall ({first} -> {last})")
+    samples = protein.SAMPLES
+    protein.SAMPLES = 1
+    try:
+        rec, out = run_captured(protein.main, PROTEIN_ARGV + [
+            "--test", "--sampler", "ddim", "--ckpt", ckpt, "--out-dir", tmp])
+    finally:
+        protein.SAMPLES = samples
+    emit("protein_train", run="test_on_checkpoint", sampler="ddim_50",
+         seconds=rec["sample_seconds"], poses=rec["poses"],
+         angle_p50=float(np.median(rec["angles"])), shift_p50=float(np.median(rec["shifts"])))
+    if "no checkpoint found" in out or not rec["finite"] or rec["orth_err"] >= 1e-4:
+        raise AssertionError("protein_train: --test did not evaluate the checkpoint")
+    shutil.rmtree(ckpt)
+
+    diffs = protein_exact_resume(tmp)
+    emit("protein_train", run="exact_resume", n=PROTEIN_TRAIN["exact_n"], max_abs_diff=diffs,
+         bit_identical=all(d == 0.0 for d in diffs.values()))
+    if any(d != 0.0 for d in diffs.values()):
+        raise AssertionError(f"protein_train: resumed weights differ: {diffs}")
+
+    epochs = PROTEIN_TRAIN["accum_epochs"]
+    ckpt, log = os.path.join(tmp, "accum"), os.path.join(tmp, "accum.jsonl")
+    run_captured(protein.main, PROTEIN_ARGV + [
+        "--epoch-accum", "--steps", str(epochs), "--ckpt", ckpt, "--log", log])
+    rows = read_jsonl(log)
+    emit("protein_train", run="epoch_accum", epochs=epochs, optimizer_steps=latest_step(ckpt),
+         losses=[r["loss"] for r in rows])
+    # 16 pairs in batches of 16: one batch an epoch, one optimizer step an epoch
+    if latest_step(ckpt) != epochs or len(rows) != epochs or \
+            not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"protein_train: --epoch-accum rows {rows}")
+    return {"igso3_logpdf_score": igso3_cuda.launches,
+            "gaussian_kernel_sum": mmd_cuda.launches}
+
+
 def timed(name: str, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -921,13 +1255,19 @@ def main() -> None:
     bing_train = timed("bingham_train", phase_bingham_train)
     if air_train["igso3_logpdf_score"] == 0 or bing_train["gaussian_kernel_sum"] == 0:
         raise AssertionError(f"the training paths' launches: {air_train}, {bing_train}")
+    timed("small_agreement_protein", small_protein_agreement)
+    with tempfile.TemporaryDirectory() as tmp:
+        prot = timed("protein_path", lambda: phase_protein_path(tmp))
+        prot_train = timed("protein_train", lambda: phase_protein_train(tmp))
     by_path = {"aircraft": aircraft_launches, "bingham": bing,
-               "aircraft_train": air_train, "bingham_train": bing_train}
+               "aircraft_train": air_train, "bingham_train": bing_train,
+               "protein": prot, "protein_train": prot_train}
     launches = {k: sum(p[k] for p in by_path.values()) for k in aircraft_launches}
     main_n = PATH["batch"]
     tm, big = check["timing"][main_n], check["timing"][2**20]
     mid = check["timing"][BINGHAM_N]
     lp = check["timing"][f"{PATH['log_prob_n']} one sigma"]
+    prot_n = check["timing"][PROTEIN["batch"]]
     big1 = check["timing"][f"{2**20} one sigma"]
     mt = mmd_check["timing"]
     kernels = [{
@@ -948,6 +1288,8 @@ def main() -> None:
         "ms_50k_one_sigma": lp["ms"], "plain_ms_50k_one_sigma": lp["plain_ms"],
         "bound_ms_50k_one_sigma": lp["bound_ms"], "call_ms_50k_one_sigma": lp["call_ms"],
         "ms_1m_one_sigma": big1["ms"], "bound_ms_1m_one_sigma": big1["bound_ms"],
+        "ms_16": prot_n["ms"], "plain_ms_16": prot_n["plain_ms"],
+        "bound_ms_16": prot_n["bound_ms"], "call_ms_16": prot_n["call_ms"],
         "sass_instructions": sass["igso3_logpdf_score"],
         "logf_max_abs_err": check["worst"]["logf_abs"],
         "score_max_abs_err": check["worst"]["score_abs"],

@@ -25,12 +25,8 @@ __all__ = ["make_dp_train_step"]
 
 def _index(batch, i: int):
     """Sub-step ``i`` of a batch with a leading K axis (a tensor, or a
-    tuple / list / dict of them)."""
-    if isinstance(batch, torch.Tensor):
-        return batch[i]
-    if isinstance(batch, dict):
-        return {k: _index(v, i) for k, v in batch.items()}
-    return type(batch)(_index(v, i) for v in batch)
+    tuple / NamedTuple / list / dict of them, nested)."""
+    return _map(lambda x: x[i], batch)
 
 
 def _leaves(batch) -> list[torch.Tensor]:
@@ -41,10 +37,14 @@ def _leaves(batch) -> list[torch.Tensor]:
 
 
 def _map(fn, batch):
+    """``fn`` on every tensor of ``batch``, its structure kept; a NamedTuple
+    is rebuilt field by field (its constructor takes no iterable)."""
     if isinstance(batch, torch.Tensor):
         return fn(batch)
     if isinstance(batch, dict):
         return {k: _map(fn, v) for k, v in batch.items()}
+    if hasattr(batch, "_fields"):
+        return type(batch)(*(_map(fn, v) for v in batch))
     return type(batch)(_map(fn, v) for v in batch)
 
 

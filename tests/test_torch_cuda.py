@@ -321,3 +321,88 @@ def test_captured_train_steps_give_the_bits_of_eager_steps(cuda):
         graphed, _ = tail(graphed, x)
     for p, q in zip(graphed.model.parameters(), eager.model.parameters()):
         assert torch.equal(p, q)
+
+
+def _protein_setup(cuda, bf16=False, k=1, seed=0):
+    """A small ProtNet (dim 64, all flags) on 4 synthetic pairs, the
+    protein driver's loss and a step with ``steps_per_call=k``."""
+    from diffusion_extensions_tpu_torch.experiments import protein
+    from diffusion_extensions_tpu_torch.models.protnet import ProtNet
+    from diffusion_extensions_tpu_torch.parallel.dp import make_dp_train_step
+    from diffusion_extensions_tpu_torch.processes.se3 import ProjectedSE3Diffusion
+    from diffusion_extensions_tpu_torch.train.optim import make_optimizer
+    from diffusion_extensions_tpu_torch.train.state import TrainState
+
+    torch.manual_seed(seed)
+    model = ProtNet(dim=64, heads=4, t_depth=2, c_depth=3, frame_pool=True, cross_depth=1,
+                    rel_frame=True, equiv_head=True, bf16=bf16).to(cuda)
+    proc = ProjectedSE3Diffusion(100, clip_shift=75.0, device=cuda)
+    opt = make_optimizer(model.named_parameters(), 1e-3, impl="fused")
+    step = make_dp_train_step(protein.make_loss_fn(model, proc), model, opt, steps_per_call=k,
+                              log_norms=True)
+    return TrainState(model, opt, torch.Generator(device=cuda).manual_seed(3)), step, proc
+
+
+def _protein_batches(n):
+    from types import SimpleNamespace
+
+    from diffusion_extensions_tpu_torch.experiments import protein
+
+    args = protein.parse_args(["--se3", "--batch", "4"])
+    pairs = protein.load_pairs(SimpleNamespace(data_root="/nonexistent"))
+    rng = np.random.default_rng(0)
+    out = []
+    while len(out) < n:
+        out += list(protein.make_batches(pairs, args, rng))
+    return out[:n]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_captured_protein_steps_give_the_bits_of_eager_steps(cuda, bf16):
+    """The protein step (a nested NamedTuple batch with bool masks, the
+    fused pass's block mask built on the device) replayed from a CUDA graph
+    with K = 4: 8 steps in two calls give the weights and the last loss of
+    8 eager steps to the bit."""
+    from diffusion_extensions_tpu_torch.data.pdb import to_device
+    from diffusion_extensions_tpu_torch.experiments.protein import stack_batches
+
+    batches = _protein_batches(8)
+    eager, step1, _ = _protein_setup(cuda, bf16)
+    for b in batches:
+        eager, m1 = step1(eager, to_device(b, cuda))
+    graphed, step4, _ = _protein_setup(cuda, bf16, k=4)
+    for i in (0, 4):
+        graphed, m4 = step4(graphed, to_device(stack_batches(batches[i : i + 4]), cuda))
+    torch.cuda.synchronize()
+    assert graphed.step == eager.step == 8
+    assert float(m4["loss"]) == float(m1["loss"])
+    for p, q in zip(graphed.model.parameters(), eager.model.parameters()):
+        assert torch.equal(p, q)
+
+
+def test_protein_heun_sampler_launches_kernel_twice_per_step(cuda):
+    """The SE(3) Heun sampler's rotation score runs the IGSO(3) kernel once
+    per model evaluation: 2 launches a step, none in the final estimate."""
+    from diffusion_extensions_tpu_torch.data.pdb import to_device
+    from diffusion_extensions_tpu_torch.models.projections import ProtProjection
+
+    state, _, proc = _protein_setup(cuda)
+    proj = ProtProjection(to_device(_protein_batches(1)[0], cuda))
+    before = igso3_cuda.launches
+    with torch.inference_mode():
+        out = proc.pf_sample_loop(state.model.eval(), torch.Generator(device=cuda).manual_seed(0),
+                                  (4,), 6, proj, method="heun")
+    assert igso3_cuda.launches == before + 12
+    assert torch.isfinite(out.rot).all() and torch.isfinite(out.shift).all()
+
+
+def test_to_device_packs_one_pinned_copy(cuda):
+    """A nested protein batch moved in one copy equals leaf-by-leaf copies."""
+    from diffusion_extensions_tpu_torch.data.pdb import to_device
+
+    b = _protein_batches(1)[0]
+    dev = to_device(b, cuda)
+    assert dev.receptor_mask.dtype == torch.bool and dev.ligand.angles.is_cuda
+    for got, want in ((dev.receptor.positions, b.receptor.positions),
+                      (dev.ligand.angles, b.ligand.angles), (dev.ligand_mask, b.ligand_mask)):
+        assert np.array_equal(got.cpu().numpy(), want)

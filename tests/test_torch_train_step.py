@@ -278,3 +278,47 @@ def test_start_from_converted_optimizer_state_matches_next_jax_step(opt):
     s.tstate, tmetrics = s.tstep_fn()(s.tstate, batch)
     np.testing.assert_allclose(float(tmetrics["loss"]), float(jm["loss"]), rtol=1e-5)
     s.check_weights(tol=1e-6, outlier_tol=1e-6, key_tol=LR / 2)
+
+
+def test_steps_per_call_takes_a_nested_namedtuple_batch():
+    """A K-stacked batch of NamedTuples (the protein driver's ProtBatch of
+    ProtData, with a bool mask) is split field by field: one call of K = 3
+    equals three single steps to the bit."""
+    from typing import NamedTuple
+
+    class Inner(NamedTuple):
+        x: torch.Tensor
+        w: torch.Tensor
+
+    class Outer(NamedTuple):
+        inner: Inner
+        mask: torch.Tensor
+
+    def loss_fn(model):
+        def fn(gen, batch):
+            noise = torch.randn(batch.mask.shape, generator=gen)
+            pred = model(batch.inner.x)[..., 0] * batch.inner.w + noise
+            return torch.mean(torch.where(batch.mask, pred, 0.0) ** 2)
+        return fn
+
+    rng = np.random.default_rng(0)
+    batches = Outer(Inner(torch.from_numpy(rng.standard_normal((3, 8, 4)).astype(np.float32)),
+                          torch.from_numpy(rng.standard_normal((3, 8)).astype(np.float32))),
+                    torch.from_numpy(rng.uniform(size=(3, 8)) > 0.3))
+    runs = []
+    for k in (1, 3):
+        torch.manual_seed(0)
+        model = torch.nn.Linear(4, 1)
+        opt = make_optimizer(model.named_parameters(), 1e-2)
+        state = TrainState(model, opt, torch.Generator().manual_seed(1))
+        step = make_dp_train_step(loss_fn(model), model, opt, steps_per_call=k)
+        if k == 1:
+            for i in range(3):
+                state, m = step(state, Outer(Inner(batches.inner.x[i], batches.inner.w[i]),
+                                             batches.mask[i]))
+        else:
+            state, m = step(state, batches)
+        runs.append((float(m["loss"]), [p.detach().clone() for p in model.parameters()]))
+        assert state.step == 3
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
