@@ -6,7 +6,7 @@
 Builds every CUDA kernel of the port from the sources in this checkout (one
 nvcc per source, all started together; prints what ptxas says of each and,
 where cuobjdump is there, the SASS instruction counts), holds each against
-its plain PyTorch version on the card, then drives six paths at full size,
+its plain PyTorch version on the card, then drives ten paths at full size,
 each with the kernels' launch counts set to 0 just before it and read just
 after:
 
@@ -43,10 +43,25 @@ after:
   16 + 96 with ``--bf16 --opt-impl fused --opt-state-dtype bf16
   --steps-per-call 8``, 200 steps of the latter whose loss must fall,
   ``--test`` on that checkpoint, 2N replayed steps against N + save +
-  restore + N, and two epochs of ``--epoch-accum``.
+  restore + N, and two epochs of ``--epoch-accum``;
+* the aircraft Euler arm (``--so3`` off: ProjectedGaussianDiffusion, l1) at
+  the aircraft width: 10 + 50 ``--bf16 --steps-per-call 8`` steps, 100 fp32
+  steps whose loss must fall, ``--test --euler-init haar`` on that checkpoint
+  (a 1000-step chain a shape over 32 shapes, gated finite and on SO(3));
+* the protein Euler arm (``--se3`` off: ProtNet(se3=False), the same
+  163,077,652 weights, ProjectedEulerDiffusion): the forward in float32 and
+  bf16, 16 + 96 steps with the production flags, ``--test`` with the
+  1000-step ancestral chain, one sample a pose over 16 poses (the seeded
+  init, head scaled by PROTEIN_HEAD_SCALE), rotations gated on SO(3) and
+  shifts on finiteness;
+* ``experiments/so3_toy.py``: 2000 steps at K = 16, then ``--test`` with the
+  ancestral, DDIM-50 and probability-flow-50 samplers over 512 chains;
+* ``experiments/lock.py``, both ``--param`` arms: 2000 eager steps each,
+  then ``--test`` over 512 chains (|axis . y|, the in-range fraction).
 
-Three small runs hold the card against the CPU for sampling, two for training
-(the protein one for all three).
+Small runs hold the card against the CPU: sampling (aircraft Heun, Bingham
+DDIM), training, the protein slice, and the Euler arms (an aircraft Euler
+chain, protein Euler steps, five lock-arm losses per arm).
 Every phase prints JSON lines, and the seconds each phase took; any failure
 raises and exits non-zero.  The last lines are the kernels' summary, the
 card's name and power limit as nvidia-smi reports them, and
@@ -79,7 +94,7 @@ from diffusion_extensions_tpu_torch.data.pdb import (
 )
 from diffusion_extensions_tpu_torch.data.shapenet import BatchLoader, synthetic_planes
 from diffusion_extensions_tpu_torch.data.synthetic import bingham_dist
-from diffusion_extensions_tpu_torch.experiments import aircraft, bingham, protein
+from diffusion_extensions_tpu_torch.experiments import aircraft, bingham, lock, protein, so3_toy
 from diffusion_extensions_tpu_torch.experiments.aircraft import subsample_points
 from diffusion_extensions_tpu_torch.models.planenet import PlaneNet
 from diffusion_extensions_tpu_torch.models.projections import PointCloudProj, ProtProjection
@@ -93,9 +108,12 @@ from diffusion_extensions_tpu_torch.ops.so3 import (
     exp_skewvec,
     haar_rotations,
     quat_to_rmat,
+    rmat_to_euler,
     rotation_angle,
 )
 from diffusion_extensions_tpu_torch.parallel.dp import make_dp_train_step
+from diffusion_extensions_tpu_torch.processes.euler import ProjectedEulerDiffusion
+from diffusion_extensions_tpu_torch.processes.r3 import ProjectedGaussianDiffusion
 from diffusion_extensions_tpu_torch.processes.se3 import ProjectedSE3Diffusion
 from diffusion_extensions_tpu_torch.processes.so3 import ProjectedSO3Diffusion, SO3Diffusion
 from diffusion_extensions_tpu_torch.train.optim import make_optimizer
@@ -174,6 +192,17 @@ PROTEIN_HEAD_SCALE = 1e-2
 # protocol), the falling-loss run, N of N + save + restore + N, epochs of
 # --epoch-accum
 PROTEIN_TRAIN = dict(timed=96, fall_steps=200, exact_n=8, accum_epochs=2)
+# the Euler arms: the aircraft arm at PATH's width (bf16 K = 8 timed steps,
+# fp32 K = 1 for the falling loss, --test one chain per shape over 32
+# shapes); the protein arm at the headline width with the production flags
+# (--test: the 1000-step ancestral chain, one sample a pose, on the seeded
+# init with its output layer scaled by PROTEIN_HEAD_SCALE)
+EULER = dict(fall_steps=100, test_shapes=32)
+PROTEIN_EULER_ARGV = [a for a in PROTEIN_ARGV if a != "--se3"]
+# the two small suites: so3_toy (RotPredict d65, batch 64) and both lock arms
+# (batch 32, eager steps), cut from 200,000 / 100,000 steps; --test over 512
+# chains
+SUITES = dict(toy_steps=2000, toy_k=16, lock_steps=2000, eval_batch=512)
 
 
 def emit(phase: str, **fields) -> None:
@@ -1231,6 +1260,324 @@ def phase_protein_train(tmp: str) -> dict:
             "gaussian_kernel_sum": mmd_cuda.launches}
 
 
+def small_euler_agreement() -> None:
+    """The Euler arms on the card against the same on the CPU, from one init
+    and the same x_init and noise (drawn once on the CPU): the aircraft
+    Euler chain (PlaneNet dim 64 / 2 layers, head scaled by 0.1,
+    ProjectedGaussianDiffusion T = 20, B 4 x 32 points, Haar-Euler x_init);
+    a protein Euler DDPM (ProtNet dim 64 / 4 heads / t_depth 2 / c_depth 3,
+    se3=False, every flag, head scaled by 0.1, ProjectedEulerDiffusion
+    T = 20, 4 pairs): each of its steps from the CPU chain's state.  The
+    aircraft chain: 1e-3 of 1 + the state's largest entry; a protein step
+    1e-4 of it.  The protein chain itself is not gated: an unclipped Euler
+    chain of an untrained model grows by 1/sqrt(alpha_t) a step (to ~1e4
+    here), its angles reach hundreds of radians, and the two devices' sin
+    and cos of those part in the last bits, which the ligand's moved
+    positions feed back; its free-running difference is printed.  Five
+    lock-arm train steps for each arm (batch 32, the same t and noise, Adam
+    lr 1e-3): each loss rtol 1e-4."""
+    out = {}
+    # aircraft Euler chain
+    torch.manual_seed(21)
+    init = PlaneNet(dim=64, heads=4, layers=2)
+    with torch.no_grad():
+        init.head.weight.mul_(0.1)
+        init.head.bias.mul_(0.1)
+    data = torch.from_numpy(np.random.default_rng(21).standard_normal((4, 32, 3)).astype(
+        np.float32))
+    x_init = torch.stack(rmat_to_euler(haar_rotations(torch.Generator().manual_seed(22), (4,))),
+                         -1)
+    noise = torch.randn(20, 4, 3, generator=torch.Generator().manual_seed(23))
+    chains = {}
+    for dev in ("cpu", "cuda"):
+        proc = ProjectedGaussianDiffusion(20, device=dev)
+        with torch.inference_mode():
+            chains[dev] = proc.p_sample_loop(init.to(dev).eval(), None, (4, 3),
+                                             projection=PointCloudProj(data.to(dev), so3=False),
+                                             x_init=x_init.to(dev), noise=noise.to(dev)).cpu()
+    ref = chains["cpu"]
+    out["aircraft_chain_err"] = float((chains["cuda"] - ref).abs().max()) / (
+        1.0 + float(ref.abs().max()))
+    # protein Euler DDPM
+    cfg = dict(dim=64, heads=4, t_depth=2, c_depth=3, se3=False, frame_pool=True, cross_depth=2,
+               rel_frame=True, equiv_head=True)
+    torch.manual_seed(24)
+    pinit = ProtNet(**cfg)
+    with torch.no_grad():
+        pinit.head_out.weight.mul_(0.1)
+        pinit.head_out.bias.mul_(0.1)
+    rng = np.random.default_rng(24)
+    batch_np = pad_prot_batch([synthetic_prot_pair(rng, 40 - i, 20 - i) for i in range(4)])
+    proc_cpu = ProjectedEulerDiffusion.create(20, device="cpu")
+    x0 = torch.randn(4, 6, generator=torch.Generator().manual_seed(25)) * proc_cpu._block_scale()
+    pnoise = torch.randn(20, 4, 6, generator=torch.Generator().manual_seed(26))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        proc = proc_cpu if dev == "cpu" else ProjectedEulerDiffusion.create(20, device=dev)
+        model = ProtNet(**cfg)
+        model.load_state_dict(pinit.state_dict())
+        runs[dev] = (proc, model.to(dev).eval(),
+                     ProtProjection(to_device(batch_np, dev), se3=False))
+    (cproc, cmodel, cproj), (gproc, gmodel, gproj) = runs["cpu"], runs["cuda"]
+    step_err, x_cpu, x_card = 0.0, x0, x0.cuda()
+    with torch.inference_mode():
+        for j, i in enumerate(range(19, -1, -1)):
+            t = torch.full((4,), i)
+            nxt = cproc.p_sample(cmodel, None, x_cpu, t, projection=cproj, noise=pnoise[j])
+            anchored = gproc.p_sample(gmodel, None, x_cpu.cuda(), t.cuda(), projection=gproj,
+                                      noise=pnoise[j].cuda()).cpu()
+            step_err = max(step_err, float((anchored - nxt).abs().max())
+                           / (1.0 + float(nxt.abs().max())))
+            x_card = gproc.p_sample(gmodel, None, x_card, t.cuda(), projection=gproj,
+                                    noise=pnoise[j].cuda())
+            x_cpu = nxt
+    ref = x_cpu
+    out["protein_step_err"] = step_err
+    out["protein_free_chain_err"] = float((x_card.cpu() - ref).abs().max()) / (
+        1.0 + float(ref.abs().max()))
+    out["protein_state_max"] = float(ref.abs().max())
+    # lock-arm losses
+    for param in ("so3", "euler"):
+        args = lock.parse_args(["--param", param, "--timesteps", "1000"])
+        gen = torch.Generator().manual_seed(27)
+        batches = [lock.lock_batch(gen, 32, param) for _ in range(5)]
+        ts = [torch.randint(0, args.timesteps, (32,), generator=gen) for _ in range(5)]
+        proc_cpu = lock.build(args, "cpu")[1]
+        if param == "so3":
+            noises = [proc_cpu.sample_noise(gen, t) for t in ts]
+        else:
+            noises = [torch.randn(32, 3, generator=gen) for _ in ts]
+        state0 = lock.build(args, "cpu")[0].state_dict()
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            model, proc = lock.build(args, dev)
+            model.load_state_dict(state0)
+            opt = make_optimizer(model.named_parameters(), 1e-3)
+            step = make_dp_train_step(lock.make_loss_fn(model, proc), model, opt,
+                                      skip_nonfinite=True)
+            state = TrainState(model, opt, torch.Generator(device=dev))
+            losses[dev] = []
+            for b, t, n in zip(batches, ts, noises):
+                state, m = step(state, (b.to(dev), t.to(dev), n.to(dev)))
+                losses[dev].append(float(m["loss"]))
+        out[f"lock_{param}_loss_rel_err"] = max(
+            abs(a - b) / abs(a) for a, b in zip(losses["cpu"], losses["cuda"]))
+        out[f"lock_{param}_losses_cuda"] = losses["cuda"]
+    emit("small_agreement", run="euler", chain_tol=1e-3, step_tol=1e-4, loss_rtol=1e-4, **out)
+    if not (out["aircraft_chain_err"] < 1e-3 and out["protein_step_err"] < 1e-4
+            and out["lock_so3_loss_rel_err"] < 1e-4 and out["lock_euler_loss_rel_err"] < 1e-4):
+        raise AssertionError(f"Euler arms: card and CPU disagree: {out}")
+
+
+def phase_euler_aircraft(tmp: str) -> dict:
+    """The aircraft Euler arm at full width through ``aircraft.main``: timed
+    ``--bf16 --steps-per-call 8`` steps, a fp32 run whose loss must fall,
+    and ``--test --euler-init haar`` on its checkpoint (a 1000-step chain
+    a shape, gated finite and on SO(3)); returns each kernel's launches."""
+    igso3_cuda.launches = mmd_cuda.launches = 0
+    base = ["--dim", str(PATH["dim"]), "--heads", str(PATH["heads"]), "--layers",
+            str(PATH["layers"]), "--batch", str(PATH["batch"]), "--samples", str(PATH["samples"]),
+            "--timesteps", str(PATH["timesteps"])]
+    steps = TRAIN["warmup"] + TRAIN["timed"]
+    log = os.path.join(tmp, "euler_k8.jsonl")
+    torch.cuda.reset_peak_memory_stats()
+    state = aircraft.main(base + ["--bf16", "--steps-per-call", "8", "--steps", str(steps),
+                                  "--print-every", str(TRAIN["print_every"]), "--ckpt",
+                                  os.path.join(tmp, "euler_k8"), "--log", log])
+    rows = read_jsonl(log)
+    sps = rows[-1]["steps_per_sec"]
+    emit("euler_aircraft", variant="bf16_k8", steps=steps, timed_steps=TRAIN["timed"],
+         ms_per_step=1e3 / sps, steps_per_sec=sps, loss_last=rows[-1]["loss"],
+         test_loss=rows[-1]["test_loss"], peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if state.step != steps or not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"euler_aircraft: step {state.step}, rows {rows}")
+
+    ckpt, log = os.path.join(tmp, "euler_fall"), os.path.join(tmp, "euler_fall.jsonl")
+    n = EULER["fall_steps"]
+    run_captured(aircraft.main, base + ["--steps", str(n), "--print-every", "1", "--ckpt", ckpt,
+                                        "--log", log])
+    rows = read_jsonl(log)
+    first = float(np.mean([r["loss"] for r in rows[:10]]))
+    last = float(np.mean([r["loss"] for r in rows[-10:]]))
+    emit("euler_aircraft", run="falling_loss", steps=n, loss_first_10=first, loss_last_10=last,
+         test_loss_first=rows[0]["test_loss"], test_loss_last=rows[-1]["test_loss"])
+    if len(rows) != n or not all(np.isfinite(r["loss"]) for r in rows) or not last < first:
+        raise AssertionError(f"euler_aircraft: loss did not fall ({first} -> {last})")
+
+    sampled = []
+    sample_rotations, per_shape = aircraft.sample_rotations, aircraft.SAMPLES_PER_SHAPE
+
+    def recorded(*a, **kw):
+        rots = sample_rotations(*a, **kw)
+        sampled.append(rots)
+        return rots
+
+    aircraft.sample_rotations, aircraft.SAMPLES_PER_SHAPE = recorded, 1
+    try:
+        t0 = time.perf_counter()
+        res, out = run_captured(aircraft.main, base + [
+            "--test", "--euler-init", "haar", "--max-shapes", str(EULER["test_shapes"]),
+            "--ckpt", ckpt])
+        sync()
+        seconds = time.perf_counter() - t0
+    finally:
+        aircraft.sample_rotations, aircraft.SAMPLES_PER_SHAPE = sample_rotations, per_shape
+    errs = check_rotations("euler_aircraft_test", sampled[0])
+    emit("euler_aircraft", run="test_on_checkpoint", euler_init="haar", seconds=seconds,
+         chains=len(sampled), samples=len(res), steps=PATH["timesteps"],
+         median_angle=float(np.median(res)), **errs)
+    if "no checkpoint found" in out or res.shape != (EULER["test_shapes"],) \
+            or not np.isfinite(res).all() or "(eul)" not in out:
+        raise AssertionError("euler_aircraft: --test did not evaluate the checkpoint")
+    return {"igso3_logpdf_score": igso3_cuda.launches,
+            "gaussian_kernel_sum": mmd_cuda.launches}
+
+
+def phase_euler_protein(tmp: str) -> dict:
+    """The protein Euler arm (--se3 off) at the headline width: the forward
+    in float32 and bf16, 16 + 96 steps with the production flags, then
+    ``--test`` with the 1000-step ancestral chain (one sample a pose, the
+    seeded init with its output layer scaled by PROTEIN_HEAD_SCALE);
+    rotations gated on SO(3), shifts on finiteness."""
+    device = torch.device("cuda")
+    torch.manual_seed(0)
+    with torch.device(device):
+        model = ProtNet(dim=PROTEIN["dim"], heads=PROTEIN["heads"], t_depth=PROTEIN["t_depth"],
+                        c_depth=PROTEIN["c_depth"], se3=False, frame_pool=True,
+                        cross_depth=PROTEIN["cross_depth"], rel_frame=True,
+                        equiv_head=True).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != PROTEIN["params"]:
+        raise AssertionError(f"ProtNet(se3=False) at the headline width has {n_params} parameters")
+    rng = np.random.default_rng(0)
+    pairs = [synthetic_prot_pair(rng, PROTEIN["receptor"], PROTEIN["ligand"])
+             for _ in range(PROTEIN["batch"])]
+    batch = to_device(pad_prot_batch(pairs), device)
+    x_in = ProtProjection(batch, se3=False)(torch.zeros(PROTEIN["batch"], 6, device=device))
+    t_in = torch.full((PROTEIN["batch"],), 500, device=device)
+    fwd = {}
+    with torch.inference_mode():
+        for name, bf16 in (("fp32", False), ("bf16", True)):
+            model.bf16 = bf16
+            out = model(x_in, t_in)
+            if out.shape != (PROTEIN["batch"], 6) or not torch.isfinite(out).all():
+                raise AssertionError(f"euler_protein: forward {name} gave {out.shape}")
+            fwd[name] = time_cuda(lambda: model(x_in, t_in), 10, warmup=3)
+    emit("euler_protein", params=n_params, forward_ms_fp32=fwd["fp32"],
+         forward_ms_bf16=fwd["bf16"])
+    with torch.no_grad():
+        model.head_out.weight.mul_(PROTEIN_HEAD_SCALE)
+        model.head_out.bias.mul_(PROTEIN_HEAD_SCALE)
+    weights = os.path.join(tmp, "euler_init_head_scaled.pt")
+    torch.save(model.state_dict(), weights)
+    del model, x_in
+    torch.cuda.empty_cache()
+
+    igso3_cuda.launches = mmd_cuda.launches = 0
+    steps = 16 + PROTEIN_TRAIN["timed"]
+    ckpt, log = os.path.join(tmp, "euler_train"), os.path.join(tmp, "euler_train.jsonl")
+    torch.cuda.reset_peak_memory_stats()
+    state = protein.main(PROTEIN_EULER_ARGV + [
+        "--opt-impl", "fused", "--opt-state-dtype", "bf16", "--steps-per-call", "8",
+        "--steps", str(steps), "--print-every", str(steps), "--ckpt", ckpt, "--log", log])
+    rows = read_jsonl(log)
+    sps = rows[-1]["steps_per_sec"]
+    emit("euler_protein", variant="bf16_fused_bf16moments_k8", steps=steps,
+         timed_steps=PROTEIN_TRAIN["timed"], ms_per_step=1e3 / sps, steps_per_sec=sps,
+         loss_last=rows[-1]["loss"], grad_norm=rows[-1]["grad_norm"],
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if state.step != steps or latest_step(ckpt) != steps or not np.isfinite(rows[-1]["loss"]):
+        raise AssertionError(f"euler_protein: step {state.step}, rows {rows}")
+    del state
+    shutil.rmtree(ckpt)
+
+    samples = protein.SAMPLES
+    protein.SAMPLES = 1
+    try:
+        rec, out = run_captured(protein.main, PROTEIN_EULER_ARGV + [
+            "--test", "--ckpt", weights, "--out-dir", tmp])
+    finally:
+        protein.SAMPLES = samples
+    emit("euler_protein", run="test_ancestral_1000", seconds=rec["sample_seconds"],
+         model_evals=rec["model_evals"], poses=rec["poses"], finite=rec["finite"],
+         orth_err=rec["orth_err"], det_err=rec["det_err"],
+         angle_p50=float(np.median(rec["angles"])), shift_p50=float(np.median(rec["shifts"])),
+         shift_max=float(np.max(rec["shifts"])))
+    ok = (rec["arm"] == "eul" and rec["finite"] and rec["orth_err"] < 1e-4
+          and rec["det_err"] < 1e-4 and rec["poses"] == PROTEIN["batch"]
+          and rec["model_evals"] == PROTEIN["timesteps"] and "no checkpoint found" not in out)
+    if not ok:
+        raise AssertionError(f"euler_protein --test: "
+                             f"{ {k: v for k, v in rec.items() if k not in ('angles', 'shifts')} }")
+    return {"igso3_logpdf_score": igso3_cuda.launches,
+            "gaussian_kernel_sum": mmd_cuda.launches}
+
+
+def phase_so3_toy(tmp: str) -> dict:
+    """experiments/so3_toy.py: training at K = 16 (one CUDA graph replayed a
+    step), then --test with the ancestral, DDIM-50 and probability-flow-50
+    samplers over 512 chains; returns each kernel's launches."""
+    igso3_cuda.launches = mmd_cuda.launches = 0
+    ckpt, log, out = (os.path.join(tmp, "toy"), os.path.join(tmp, "toy.jsonl"),
+                      os.path.join(tmp, "toy_out"))
+    steps = SUITES["toy_steps"]
+    t0 = time.perf_counter()
+    so3_toy.main(["--steps", str(steps), "--steps-per-call", str(SUITES["toy_k"]),
+                  "--print-every", "400", "--ckpt", ckpt, "--log", log])
+    rows = read_jsonl(log)
+    emit("so3_toy", run="train", steps=steps, seconds=time.perf_counter() - t0,
+         steps_per_sec=rows[-1]["steps_per_sec"], loss_first=rows[0]["loss"],
+         loss_last=rows[-1]["loss"])
+    if latest_step(ckpt) != steps or not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"so3_toy: rows {rows}, checkpoint {latest_step(ckpt)}")
+    for sampler in ("ancestral", "ddim", "pf"):
+        rec, text = run_captured(so3_toy.main, [
+            "--test", "--sampler", sampler, "--eval-batch", str(SUITES["eval_batch"]),
+            "--ckpt", ckpt, "--out-dir", out])
+        emit("so3_toy", run="test", sampler=sampler, seconds=rec["sample_seconds"],
+             model_evals=rec["model_evals"], launches=rec["launches"],
+             percentiles=rec["percentiles"])
+        if "untrained" in text or not rec["finite"] or rec["count"] != SUITES["eval_batch"] \
+                or rec["launches"] != 0:
+            raise AssertionError(f"so3_toy --test {sampler}: {rec['percentiles']}")
+    return {"igso3_logpdf_score": igso3_cuda.launches,
+            "gaussian_kernel_sum": mmd_cuda.launches}
+
+
+def phase_lock(tmp: str) -> dict:
+    """experiments/lock.py, both arms: eager steps (the non-finite skip
+    waits for the device), then --test over 512 chains; returns each
+    kernel's launches."""
+    igso3_cuda.launches = mmd_cuda.launches = 0
+    out = os.path.join(tmp, "lock_out")
+    steps = SUITES["lock_steps"]
+    for param in ("so3", "euler"):
+        ckpt, log = os.path.join(tmp, f"lock_{param}"), os.path.join(tmp, f"lock_{param}.jsonl")
+        t0 = time.perf_counter()
+        lock.main(["--param", param, "--steps", str(steps), "--print-every", "200",
+                   "--ckpt", ckpt, "--log", log])
+        rows = read_jsonl(log)
+        emit("lock", param=param, run="train", steps=steps, seconds=time.perf_counter() - t0,
+             steps_per_sec=rows[-1]["steps_per_sec"], loss_first=rows[0]["loss"],
+             loss_last=rows[-1]["loss"])
+        if latest_step(ckpt) != steps or not all(np.isfinite(r["loss"]) for r in rows):
+            raise AssertionError(f"lock {param}: rows {rows}")
+        rec, text = run_captured(lock.main, ["--param", param, "--test", "--eval-batch",
+                                             str(SUITES["eval_batch"]), "--ckpt", ckpt,
+                                             "--out-dir", out])
+        emit("lock", param=param, run="test", seconds=rec["sample_seconds"],
+             axis_y_mean=rec["axis_y_mean"], angle_mean=rec["angle_mean"],
+             in_range=rec["in_range"], count=rec["count"])
+        if "untrained" in text or not rec["finite"] or rec["count"] != SUITES["eval_batch"]:
+            raise AssertionError(f"lock --test {param}: {rec}")
+    files = sorted(os.listdir(out))
+    if files != ["torch_lock_euler.json", "torch_lock_samples_euler.npy",
+                 "torch_lock_samples_so3.npy", "torch_lock_so3.json"]:
+        raise AssertionError(f"lock records: {files}")
+    return {"igso3_logpdf_score": igso3_cuda.launches,
+            "gaussian_kernel_sum": mmd_cuda.launches}
+
+
 def timed(name: str, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -1259,9 +1606,16 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         prot = timed("protein_path", lambda: phase_protein_path(tmp))
         prot_train = timed("protein_train", lambda: phase_protein_train(tmp))
+    timed("small_agreement_euler", small_euler_agreement)
+    with tempfile.TemporaryDirectory() as tmp:
+        euler_air = timed("euler_aircraft", lambda: phase_euler_aircraft(tmp))
+        euler_prot = timed("euler_protein", lambda: phase_euler_protein(tmp))
+        toy = timed("so3_toy", lambda: phase_so3_toy(tmp))
+        lock_suite = timed("lock", lambda: phase_lock(tmp))
     by_path = {"aircraft": aircraft_launches, "bingham": bing,
                "aircraft_train": air_train, "bingham_train": bing_train,
-               "protein": prot, "protein_train": prot_train}
+               "protein": prot, "protein_train": prot_train, "euler_aircraft": euler_air,
+               "euler_protein": euler_prot, "so3_toy": toy, "lock": lock_suite}
     launches = {k: sum(p[k] for p in by_path.values()) for k in aircraft_launches}
     main_n = PATH["batch"]
     tm, big = check["timing"][main_n], check["timing"][2**20]

@@ -1,12 +1,18 @@
 """Weights of the JAX package's flax models -> the port's modules.
 
 ``planenet_params_from_flax(params_np)``,
-``rot_predict_params_from_flax(params_np)`` and
+``rot_predict_params_from_flax(params_np)``,
+``euler_rot_predict_params_from_flax(params_np)`` and
 ``protnet_params_from_flax(params_np)`` take a flax parameter tree as
 nested dicts of numpy arrays (with or without the top-level ``"params"``
 key) and return a state dict for ``models.planenet.PlaneNet``,
-``models.rot_predict.RotPredict`` or ``models.protnet.ProtNet``; the
-``*_config_from_flax`` functions give the constructor arguments.
+``models.rot_predict.RotPredict``, ``models.rot_predict.EulerRotPredict``
+or ``models.protnet.ProtNet``; the ``*_config_from_flax`` functions give the
+constructor arguments.  The trees of ``EulerRotPredict(d)`` and of
+``RotPredict(d, "skewvec", "resnet")`` have the same leaves and shapes, so
+no function can tell them apart: the caller says which model a tree is by
+the function it calls.  A ProtNet tree with ``fused_qkv`` holds no head
+count; ``protnet_config_from_flax`` then takes it as ``heads=``.
 ``adam_state_from_optax(mu_np, nu_np, count)`` maps the two moment trees of
 an optax Adam state (``ScaleByAdamState`` or the JAX package's
 ``FusedAdamState``) through the same name mappings into a state that
@@ -14,7 +20,7 @@ an optax Adam state (``ScaleByAdamState`` or the JAX package's
 one mid-training state.  flax ``Dense`` kernels are (in, out) and are
 transposed for ``nn.Linear``; the attention q/k/v kernels are (dim, heads,
 head_dim) with (heads, head_dim) biases, the output kernel (heads, head_dim,
-dim); conv kernels (3, Cin, Cout) become (Cout, Cin, 3).  Any missing, extra
+dim); a fused attention's ``qkv`` and ``out`` are plain Dense; conv kernels (3, Cin, Cout) become (Cout, Cin, 3).  Any missing, extra
 or mis-shaped leaf raises.
 """
 from __future__ import annotations
@@ -27,6 +33,8 @@ __all__ = [
     "planenet_config_from_flax",
     "rot_predict_params_from_flax",
     "rot_predict_config_from_flax",
+    "euler_rot_predict_params_from_flax",
+    "euler_rot_predict_config_from_flax",
     "protnet_params_from_flax",
     "protnet_config_from_flax",
     "adam_state_from_optax",
@@ -34,6 +42,7 @@ __all__ = [
 
 _ENC = "TransformerEncoder_0"
 _MHA = "MultiHeadDotProductAttention_0"
+_FUSED = "FusedSelfAttention_0"
 
 
 def _flatten(tree, prefix=()):
@@ -70,18 +79,23 @@ def _dense(src, dst):
     }
 
 
-def _block_mapping(src: str, dst: str) -> dict:
+def _block_mapping(src: str, dst: str, fused_qkv: bool = False) -> dict:
     """One post-norm attention block (``TransformerEncoderLayer`` or
     ``TransformerCrossLayer``): flax paths under ``src`` -> port keys under
     ``dst``."""
     m = {}
-    for name in ("query", "key", "value"):
+    if fused_qkv:
+        m.update(_dense(f"{src}/{_FUSED}/qkv", f"{dst}.qkv"))
+        m.update(_dense(f"{src}/{_FUSED}/out", f"{dst}.out"))
+    for name in () if fused_qkv else ("query", "key", "value"):
         m[f"{src}/{_MHA}/{name}/kernel"] = (
             f"{dst}.{name}.weight", lambda a: a.reshape(a.shape[0], -1).T
         )
         m[f"{src}/{_MHA}/{name}/bias"] = (f"{dst}.{name}.bias", lambda a: a.reshape(-1))
-    m[f"{src}/{_MHA}/out/kernel"] = (f"{dst}.out.weight", lambda a: a.reshape(-1, a.shape[-1]).T)
-    m[f"{src}/{_MHA}/out/bias"] = (f"{dst}.out.bias", lambda a: a)
+    if not fused_qkv:
+        m[f"{src}/{_MHA}/out/kernel"] = (f"{dst}.out.weight",
+                                         lambda a: a.reshape(-1, a.shape[-1]).T)
+        m[f"{src}/{_MHA}/out/bias"] = (f"{dst}.out.bias", lambda a: a)
     for j, norm in ((0, "norm1"), (1, "norm2")):
         m.update(_layer_norm(f"{src}/LayerNorm_{j}", f"{dst}.{norm}"))
     m.update(_dense(f"{src}/Dense_0", f"{dst}.ff1"))
@@ -94,14 +108,19 @@ def _layer_norm(src, dst):
             f"{src}/bias": (f"{dst}.bias", lambda a: a)}
 
 
-def _block_shapes(src: str, dim: int, heads: int, dff: int = 2048) -> dict:
+def _block_shapes(src: str, dim: int, heads: int, dff: int = 2048,
+                  fused_qkv: bool = False) -> dict:
     hd = dim // heads
     s = {}
-    for name in ("query", "key", "value"):
-        s[f"{src}/{_MHA}/{name}/kernel"] = (dim, heads, hd)
-        s[f"{src}/{_MHA}/{name}/bias"] = (heads, hd)
-    s[f"{src}/{_MHA}/out/kernel"] = (heads, hd, dim)
-    s[f"{src}/{_MHA}/out/bias"] = (dim,)
+    if fused_qkv:
+        s.update(_dense_shapes(f"{src}/{_FUSED}/qkv", dim, 3 * dim))
+        s.update(_dense_shapes(f"{src}/{_FUSED}/out", dim, dim))
+    else:
+        for name in ("query", "key", "value"):
+            s[f"{src}/{_MHA}/{name}/kernel"] = (dim, heads, hd)
+            s[f"{src}/{_MHA}/{name}/bias"] = (heads, hd)
+        s[f"{src}/{_MHA}/out/kernel"] = (heads, hd, dim)
+        s[f"{src}/{_MHA}/out/bias"] = (dim,)
     for j in (0, 1):
         s[f"{src}/LayerNorm_{j}/scale"] = (dim,)
         s[f"{src}/LayerNorm_{j}/bias"] = (dim,)
@@ -201,16 +220,47 @@ def rot_predict_params_from_flax(params_np) -> dict[str, torch.Tensor]:
     return _convert("RotPredict", params_np, expected, mapping)
 
 
-def protnet_config_from_flax(params_np) -> dict:
+def euler_rot_predict_config_from_flax(params_np) -> dict:
+    """(d_model,) of a flax EulerRotPredict tree: the tree of a RotPredict
+    "resnet" / "skewvec" model, read as the Euler baseline's."""
+    cfg = rot_predict_config_from_flax(params_np)
+    if (cfg["variant"], cfg["out_type"]) != ("resnet", "skewvec"):
+        raise ValueError(f"not a flax EulerRotPredict parameter tree: {cfg}")
+    return {"d_model": cfg["d_model"]}
+
+
+def euler_rot_predict_params_from_flax(params_np) -> dict[str, torch.Tensor]:
+    """State dict for ``EulerRotPredict(**euler_rot_predict_config_from_flax(params_np))``
+    (named as RotPredict's "resnet" modules, so the mapping is the same)."""
+    euler_rot_predict_config_from_flax(params_np)
+    return rot_predict_params_from_flax(params_np)
+
+
+def protnet_config_from_flax(params_np, heads: int | None = None) -> dict:
     """ProtNet constructor arguments of a flax ProtNet parameter tree:
-    dim, heads, t_depth, c_depth, share_encoders, cross_depth, and the
-    readout flags, read from the head's input width (3 dim + 6, + 78 with
-    ``equiv_head``, + 72 with ``frame_pool``, + 36 with ``rel_frame``)."""
+    dim, heads, t_depth, c_depth, share_encoders, cross_depth, fused_qkv
+    and the readout flags, read from the head's input width (3 dim + 6, +
+    78 with ``equiv_head``, + 72 with ``frame_pool``, + 36 with
+    ``rel_frame``).  A ``fused_qkv`` tree without cross layers holds no
+    head count: pass it as ``heads``.  ``se3`` is not in the tree (both
+    arms have the same weights): the caller sets it."""
     p = _unwrap(params_np)
     try:
         enc = p[_ENC]
         t_depth = len([k for k in enc if k.startswith("TransformerEncoderLayer_")])
-        dim, heads, _ = np.shape(enc["TransformerEncoderLayer_0"][_MHA]["query"]["kernel"])
+        layer0 = enc["TransformerEncoderLayer_0"]
+        fused_qkv = _FUSED in layer0
+        if fused_qkv:
+            dim = np.shape(layer0[_FUSED]["out"]["kernel"])[0]
+            cross = p.get("TransformerCrossLayer_0")
+            tree_heads = None if cross is None else np.shape(cross[_MHA]["query"]["kernel"])[1]
+            if heads is None:
+                heads = tree_heads
+            if heads is None or (tree_heads is not None and tree_heads != heads):
+                raise ValueError(f"fused_qkv tree: heads {heads}, the cross layers' "
+                                 f"{tree_heads}")
+        else:
+            dim, heads, _ = np.shape(layer0[_MHA]["query"]["kernel"])
         c_depth = len([k for k in p["_ResConv_0"] if k.startswith("Conv_")])
         n_dense = len([k for k in p if k.startswith("Dense_")])
         equiv_head = n_dense == 6
@@ -224,7 +274,7 @@ def protnet_config_from_flax(params_np) -> dict:
                          f"{head_in} at dim {dim}: no flag set matches")
     frame_pool, rel_frame = flags[extra]
     return {"dim": int(dim), "heads": int(heads), "t_depth": t_depth, "c_depth": c_depth,
-            "share_encoders": "TransformerEncoder_1" not in p,
+            "share_encoders": "TransformerEncoder_1" not in p, "fused_qkv": fused_qkv,
             "cross_depth": len([k for k in p if k.startswith("TransformerCrossLayer_")]) // 2,
             "frame_pool": frame_pool, "rel_frame": rel_frame, "equiv_head": equiv_head}
 
@@ -258,8 +308,8 @@ def _protnet_tables(cfg: dict, dff: int = 2048) -> tuple[dict, dict]:
     for e, dst in enumerate(encoders):
         for i in range(cfg["t_depth"]):
             src = f"TransformerEncoder_{e}/TransformerEncoderLayer_{i}"
-            shapes.update(_block_shapes(src, dim, heads, dff))
-            m.update(_block_mapping(src, f"{dst}.layers.{i}"))
+            shapes.update(_block_shapes(src, dim, heads, dff, cfg["fused_qkv"]))
+            m.update(_block_mapping(src, f"{dst}.layers.{i}", cfg["fused_qkv"]))
         src = f"TransformerEncoder_{e}/LayerNorm_0"
         shapes.update({f"{src}/scale": (dim,), f"{src}/bias": (dim,)})
         m.update(_layer_norm(src, f"{dst}.norm"))
@@ -285,9 +335,9 @@ def _protnet_tables(cfg: dict, dff: int = 2048) -> tuple[dict, dict]:
     return shapes, m
 
 
-def protnet_params_from_flax(params_np) -> dict[str, torch.Tensor]:
-    """State dict for ``ProtNet(**protnet_config_from_flax(params_np))``."""
-    shapes, mapping = _protnet_tables(protnet_config_from_flax(params_np))
+def protnet_params_from_flax(params_np, heads: int | None = None) -> dict[str, torch.Tensor]:
+    """State dict for ``ProtNet(**protnet_config_from_flax(params_np, heads))``."""
+    shapes, mapping = _protnet_tables(protnet_config_from_flax(params_np, heads))
     return _convert("ProtNet", params_np, shapes, mapping)
 
 

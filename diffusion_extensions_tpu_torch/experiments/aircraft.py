@@ -3,22 +3,28 @@
 
     python -m diffusion_extensions_tpu_torch.experiments.aircraft --so3 --steps 10000
     python -m diffusion_extensions_tpu_torch.experiments.aircraft --so3 --test
+    python -m diffusion_extensions_tpu_torch.experiments.aircraft --test --euler-init haar
 
-Training: the state is the identity rotation and ``PlaneNet`` sees the point
-cloud rendered through the projection ``data @ R^T``; one step draws t and
-IGSO(3) noise, takes the skew-vec loss of ``ProjectedSO3Diffusion`` and
-applies Adam.  Every ``--print-every`` steps the loss, the loss of a frozen
-validation probe (``test_loss``) and the steps per second are logged;
+Training: the state is the identity rotation (``--so3``) or zero XYZ Euler
+angles (the Euler arm) and ``PlaneNet`` sees the point cloud rendered
+through the projection ``data @ R^T``; one step draws t and the noise
+(IGSO(3) or standard normal), takes the loss of ``ProjectedSO3Diffusion``
+(skew-vec) or ``ProjectedGaussianDiffusion`` (l1) and applies Adam.  Every
+``--print-every`` steps the loss, the loss of a frozen validation probe
+(``test_loss``) and the steps per second are logged;
 checkpoints (weights, optimizer, step, generator) go to the directory
 ``--ckpt`` every ``--ckpt-every`` steps and at ``--steps``, and ``--resume``
 continues from the newest.
 
 ``--test`` samples SAMPLES_PER_SHAPE rotations per test shape with the
-ancestral chain and prints the angle-error percentile table.  Its weights
-are the newest checkpoint of the directory ``--ckpt`` (or a bare
-``torch.save`` state dict of PlaneNet at that path, which
-``convert.planenet_params_from_flax`` makes from a JAX checkpoint); without
-either the seeded init is evaluated.
+ancestral chain and prints the angle-error percentile table.  The Euler
+arm's chain starts from the Euler angles of Haar-QR matrices
+(``--euler-init haar``, the reference's) or from the forward marginal
+sqrt(1 - acp_{T-1}) N(0, 1) (``marginal``), and its angles are decoded to a
+rotation at the end.  Its weights are the newest checkpoint of the
+directory ``--ckpt`` (or a bare ``torch.save`` state dict of PlaneNet at
+that path, which ``convert.planenet_params_from_flax`` makes from a JAX
+checkpoint); without either the seeded init is evaluated.
 
 Falls back to ``synthetic_planes`` when the ShapeNet files are absent.  Runs
 on the card unless ``--device`` says otherwise.
@@ -36,8 +42,9 @@ from .. import resolve_device
 from ..data.shapenet import BatchLoader, ShapeNet, synthetic_planes
 from ..models.planenet import PlaneNet
 from ..models.projections import PointCloudProj
-from ..ops.so3 import log_rmat_vec, rmat_to_aa
+from ..ops.so3 import euler_to_rmat, haar_rotations, log_rmat_vec, rmat_to_aa, rmat_to_euler
 from ..parallel.dp import make_dp_train_step
+from ..processes.r3 import ProjectedGaussianDiffusion
 from ..processes.schedule import extract
 from ..processes.so3 import ProjectedSO3Diffusion
 from ..train.loop import MetricLogger, Throughput, trace_window
@@ -83,11 +90,6 @@ def subsample_points(clouds: np.ndarray, samples: int, seed: int) -> np.ndarray:
 
 
 def check_ported(args) -> None:
-    if not args.so3:
-        raise SystemExit(
-            "the Euler arm (processes/r3.py) is not ported yet "
-            "(ROADMAP.md A.2); pass --so3"
-        )
     for name, default, item in NOT_PORTED:
         if getattr(args, name) != default:
             raise SystemExit(
@@ -101,32 +103,46 @@ def build(args, device):
     torch.manual_seed(args.seed)
     model = PlaneNet(dim=args.dim, heads=args.heads, layers=args.layers, bf16=args.bf16)
     model = model.to(device)
-    process = ProjectedSO3Diffusion(timesteps=args.timesteps, device=device)
+    if args.so3:
+        process = ProjectedSO3Diffusion(timesteps=args.timesteps, device=device)
+    else:
+        process = ProjectedGaussianDiffusion(timesteps=args.timesteps, device=device)
     return model, process
 
 
-def make_loss_fn(model, process):
-    """``loss_fn(generator, batch)``: the process's loss of the identity
-    rotation seen through the batch's clouds.  ``batch`` is the clouds
-    (B, N, 3), or ``(clouds, t, noise)`` to fix the timesteps and the noise."""
+def true_pos(b: int, so3: bool, device) -> torch.Tensor:
+    """The clean state: identity rotations, or zero Euler angles."""
+    if so3:
+        return torch.eye(3, device=device).expand(b, 3, 3)
+    return torch.zeros((b, 3), device=device)
+
+
+def make_loss_fn(model, process, so3: bool = True):
+    """``loss_fn(generator, batch)``: the process's loss of the clean state
+    seen through the batch's clouds.  ``batch`` is the clouds (B, N, 3), or
+    ``(clouds, t, noise)`` to fix the timesteps and the noise."""
 
     def loss_fn(generator, batch):
         clouds, t, noise = batch if isinstance(batch, (tuple, list)) else (batch, None, None)
-        truepos = torch.eye(3, device=clouds.device).expand(clouds.shape[0], 3, 3)
-        return process.loss(model, generator, truepos, PointCloudProj(clouds), t=t, noise=noise)
+        return process.loss(model, generator, true_pos(clouds.shape[0], so3, clouds.device),
+                            PointCloudProj(clouds, so3=so3), t=t, noise=noise)
 
     return loss_fn
 
 
 def make_val_probe(model, process, clouds: torch.Tensor, t_v: torch.Tensor,
-                   noise_v: torch.Tensor):
+                   noise_v: torch.Tensor, so3: bool = True):
     """The frozen validation probe: fixed clouds, timesteps and noise;
-    ``val_loss()`` is the denoiser's MSE against the frozen target, taken
+    ``val_loss()`` is the denoiser's MSE against the frozen target (the
+    scaled log of the rotation noise, or the normal noise itself), taken
     without gradients and without changing the model's mode."""
-    truepos = torch.eye(3, device=clouds.device).expand(clouds.shape[0], 3, 3)
-    eps_v = extract(process.schedule.sqrt_one_minus_alphas_cumprod, t_v)
-    x_in = PointCloudProj(clouds)(process.q_sample(truepos, t_v, noise_v))
-    target_v = log_rmat_vec(noise_v) / eps_v[..., None]
+    truepos = true_pos(clouds.shape[0], so3, clouds.device)
+    x_in = PointCloudProj(clouds, so3=so3)(process.q_sample(truepos, t_v, noise_v))
+    if so3:
+        eps_v = extract(process.schedule.sqrt_one_minus_alphas_cumprod, t_v)
+        target_v = log_rmat_vec(noise_v) / eps_v[..., None]
+    else:
+        target_v = noise_v
 
     def val_loss() -> torch.Tensor:
         with torch.no_grad():
@@ -168,7 +184,7 @@ def train(args) -> TrainState:
 
     K = max(args.steps_per_call, 1)
     step_fn = make_dp_train_step(
-        make_loss_fn(model, process), model, optimizer, steps_per_call=K,
+        make_loss_fn(model, process, args.so3), model, optimizer, steps_per_call=K,
         log_norms=args.log_norms or args.log_norms_per_layer,
         per_layer_norms=args.log_norms_per_layer,
     )
@@ -180,9 +196,13 @@ def train(args) -> TrainState:
                                 args.seed + 29)
     t_v = torch.randint(0, process.num_timesteps, (len(v_clouds),), device=device,
                         generator=torch.Generator(device=device).manual_seed(7))
-    noise_v = process.q_table.sample(torch.Generator(device=device).manual_seed(8), t_v)
+    noise_gen = torch.Generator(device=device).manual_seed(8)
+    if args.so3:
+        noise_v = process.q_table.sample(noise_gen, t_v)
+    else:
+        noise_v = torch.randn((len(v_clouds), 3), generator=noise_gen, device=device)
     val_loss = make_val_probe(model, process, torch.from_numpy(v_clouds).to(device),
-                              t_v, noise_v)
+                              t_v, noise_v, args.so3)
 
     logger = MetricLogger(jsonl_path=args.log, print_every=args.print_every)
     meter = Throughput()
@@ -223,6 +243,21 @@ def print_percentiles(res: np.ndarray, diff_type: str) -> None:
     print(diff_type + " " + " ".join(f"& {res_sorted[i]:.2f}" for i in idxs) + r" \\")
 
 
+def sample_rotations(process, model, gen, proj, args) -> torch.Tensor:
+    """One ancestral chain per shape of the batch -> (B, 3, 3).  The Euler
+    arm starts from ``--euler-init``: the Euler angles of Haar-QR matrices
+    (det +-1, as the reference draws them), or sqrt(1 - acp_{T-1}) times a
+    standard normal; its angles are decoded at the end."""
+    if args.so3:
+        return process.p_sample_loop(model, gen, (args.batch,), proj)
+    if args.euler_init == "marginal":
+        sig_t = process.schedule.sqrt_one_minus_alphas_cumprod[-1]
+        x_init = sig_t * torch.randn((args.batch, 3), generator=gen, device=gen.device)
+    else:
+        x_init = torch.stack(rmat_to_euler(haar_rotations(gen, (args.batch,))), dim=-1)
+    eul = process.p_sample_loop(model, gen, (args.batch, 3), projection=proj, x_init=x_init)
+    return euler_to_rmat(eul[..., 0], eul[..., 1], eul[..., 2])
+
 
 @torch.inference_mode()
 def test(args):
@@ -242,21 +277,24 @@ def test(args):
             # pad the ragged tail to the full batch shape
             pad = np.repeat(batch_np[-1:], args.batch - n_valid, axis=0)
             batch_np = np.concatenate([batch_np, pad], axis=0)
-        proj = PointCloudProj(torch.from_numpy(batch_np).to(device))
+        proj = PointCloudProj(torch.from_numpy(batch_np).to(device), so3=args.so3)
         for s in range(SAMPLES_PER_SHAPE):
             gen = torch.Generator(device=device)
             gen.manual_seed((args.seed + 1) * 1_000_003 + b * 100 + s)
-            rots = process.p_sample_loop(model, gen, (args.batch,), proj)
+            rots = sample_rotations(process, model, gen, proj, args)
             _, angle = rmat_to_aa(rots)
             results.append(angle[:n_valid, 0].cpu().numpy())
         if args.max_shapes and b + args.batch >= args.max_shapes:
             break
 
     res = np.concatenate(results)
+    diff_type = "so3" if args.so3 else "eul"
+    if not args.so3 and args.euler_init != "haar":
+        diff_type = f"eul_{args.euler_init}"
     out_dir = os.path.dirname(args.ckpt) or "."
     os.makedirs(out_dir, exist_ok=True)
-    np.save(os.path.join(out_dir, "results_aircraft_so3.npy"), res)
-    print_percentiles(res, "so3")
+    np.save(os.path.join(out_dir, f"results_aircraft_{diff_type}.npy"), res)
+    print_percentiles(res, diff_type)
     return res
 
 
@@ -269,7 +307,8 @@ def parse_args(argv=None):
     p.add_argument("--dim", type=int, default=512)
     p.add_argument("--heads", type=int, default=4)
     p.add_argument("--layers", type=int, default=4)
-    p.add_argument("--so3", action="store_true")
+    p.add_argument("--so3", action="store_true",
+                   help="SO(3) diffusion (without: the Euler-angle arm)")
     p.add_argument("--bf16", action="store_true",
                    help="run the transformer encoder under bf16 autocast")
     p.add_argument("--no-native", dest="no_native", action="store_true",
@@ -309,7 +348,9 @@ def parse_args(argv=None):
     p.add_argument("--test", action="store_true")
     p.add_argument("--euler-init", dest="euler_init",
                    choices=("haar", "marginal"), default="haar",
-                   help="chain init of the Euler arm at eval (not ported yet)")
+                   help="chain init of the Euler arm at --test: the Euler angles of "
+                        "Haar-QR matrices (the reference's), or the forward marginal "
+                        "sqrt(1 - acp_{T-1}) N(0, 1)")
     p.add_argument("--max-shapes", dest="max_shapes", type=int, default=None)
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda)")

@@ -1,12 +1,15 @@
-"""Protein heterodimer docking by SE(3) projected diffusion (counterpart of
-``diffusion_extensions_tpu/experiments/protein.py``):
+"""Protein heterodimer docking by SE(3) or Euler-angle projected diffusion
+(counterpart of ``diffusion_extensions_tpu/experiments/protein.py``):
 
     python -m diffusion_extensions_tpu_torch.experiments.protein --se3 --steps 5000
     python -m diffusion_extensions_tpu_torch.experiments.protein --se3 --test
+    python -m diffusion_extensions_tpu_torch.experiments.protein --test
 
-Training: the state is the identity transform and ``ProtNet`` sees the
-ligand moved by the noisy transform about its centroid (``ProtProjection``);
-a step takes the grad_mse loss of ``ProjectedSE3Diffusion`` and applies Adam.
+Training: the state is the identity transform (``--se3``) or the zero
+6-vector of XYZ Euler angles and shift (the Euler arm), and ``ProtNet``
+sees the ligand moved by the noisy transform about its centroid
+(``ProtProjection``); a step takes the grad_mse loss of
+``ProjectedSE3Diffusion`` or ``ProjectedEulerDiffusion`` and applies Adam.
 Batches are pairs padded on the host to the dataset's longest chains,
 Haar-augmented (``make_batches``: the JAX driver's numpy stream, so its
 batches are the same bits) and moved to the device in one copy.
@@ -16,7 +19,9 @@ exactly ``--steps`` steps run.  ``--epoch-accum`` sums the gradients over an
 epoch and takes one optimizer step, as the reference did.
 
 ``--test`` samples SAMPLES docking transforms per pose with ``--sampler``
-(the 1000-step ancestral chain, DDIM, probability flow, or Picard DDIM),
+(the 1000-step ancestral chain, DDIM, probability flow, or Picard DDIM; the
+Euler arm samples with the ancestral chain whatever ``--sampler`` says, as
+the JAX driver does, and decodes its angles and shift to a transform),
 prints the angle and shift percentile table and writes the samples to
 ``--out-dir`` (default ``torch_results/``).  Its weights are the newest
 checkpoint of the directory ``--ckpt`` (or a bare ``torch.save`` state dict
@@ -24,8 +29,7 @@ of ProtNet, which ``convert.protnet_params_from_flax`` makes from a JAX
 checkpoint); without either the seeded init is evaluated.
 
 Falls back to 16 synthetic pairs when ``data/BPTI_dock`` is absent.  Runs on
-the card unless ``--device`` says otherwise.  The Euler arm (``--se3`` off)
-is not ported yet.
+the card unless ``--device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -51,8 +55,9 @@ from ..models.projections import ProtBatch, ProtProjection
 from ..models.protnet import CONV_IMPLS, ProtNet
 from ..ops import igso3_cuda
 from ..ops.se3 import AffineT
-from ..ops.so3 import rmat_to_aa
+from ..ops.so3 import euler_to_rmat, rmat_to_aa
 from ..parallel.dp import make_dp_train_step
+from ..processes.euler import ProjectedEulerDiffusion
 from ..processes.se3 import ProjectedSE3Diffusion
 from ..train.loop import MetricLogger, Throughput
 from ..train.optim import add_optim_flags, make_optimizer
@@ -83,23 +88,20 @@ def bucket_lengths(pairs) -> tuple[int, int]:
             max(p[1].positions.shape[0] for p in pairs))
 
 
-def check_ported(args) -> None:
-    if not args.se3:
-        raise SystemExit("the Euler arm of the protein driver (processes/r3.py, "
-                         "processes/euler.py) is not ported yet: ROADMAP.md A.2; pass --se3")
-
-
 def build(args, device):
     """(model, process); the model's init is seeded by ``args.seed``."""
-    check_ported(args)
     torch.manual_seed(args.seed)
     with torch.device(device):  # the init draws on the device: seconds less at full width
         model = ProtNet(dim=args.dim, heads=args.heads, t_depth=args.t_depth,
-                        c_depth=args.c_depth, bf16=args.bf16, frame_pool=args.frame_pool,
-                        cross_depth=args.cross_depth, rel_frame=args.rel_frame,
-                        equiv_head=args.equiv_head, conv_impl=args.conv_impl)
-    process = ProjectedSE3Diffusion(timesteps=args.timesteps, clip_shift=args.clip_shift,
-                                    device=device)
+                        c_depth=args.c_depth, se3=args.se3, bf16=args.bf16,
+                        frame_pool=args.frame_pool, cross_depth=args.cross_depth,
+                        rel_frame=args.rel_frame, equiv_head=args.equiv_head,
+                        conv_impl=args.conv_impl)
+    if args.se3:
+        process = ProjectedSE3Diffusion(timesteps=args.timesteps, clip_shift=args.clip_shift,
+                                        device=device)
+    else:
+        process = ProjectedEulerDiffusion.create(timesteps=args.timesteps, device=device)
     return model, process
 
 
@@ -144,24 +146,28 @@ def stack_batches(batches):
     return np.stack(batches)
 
 
-def true_pos(b: int, device) -> AffineT:
-    return AffineT.identity((b,), device=device)
+def true_pos(b: int, device, se3: bool = True):
+    """The clean state: identity transforms, or the zero (B, 6) vector."""
+    if se3:
+        return AffineT.identity((b,), device=device)
+    return torch.zeros((b, 6), device=device)
 
 
-def make_loss_fn(model, process):
-    """``loss_fn(generator, batch)``: the process's loss of the identity
-    transform seen through the batch.  ``batch`` is a ProtBatch, or
-    ``(batch, t, (noise_rot, noise_shift))`` to fix the timesteps and the
-    noise."""
+def make_loss_fn(model, process, se3: bool = True):
+    """``loss_fn(generator, batch)``: the process's loss of the clean state
+    seen through the batch.  ``batch`` is a ProtBatch, or ``(batch, t,
+    noise)`` to fix the timesteps and the noise: ``(noise_rot,
+    noise_shift)`` for SE(3), the (B, 6) unit normal for the Euler arm."""
 
     def loss_fn(generator, batch):
         t = noise = None
         if not isinstance(batch, ProtBatch):
             batch, t, noise = batch
-            noise = AffineT(*noise)
+            if se3:
+                noise = AffineT(*noise)
         b = batch.receptor_mask.shape[0]
-        return process.loss(model, generator, true_pos(b, batch.receptor_mask.device),
-                            ProtProjection(batch), t=t, noise=noise)
+        return process.loss(model, generator, true_pos(b, batch.receptor_mask.device, se3),
+                            ProtProjection(batch, se3=se3), t=t, noise=noise)
 
     return loss_fn
 
@@ -206,7 +212,7 @@ def train(args) -> TrainState:
     if args.epoch_accum and K != 1:
         print("--epoch-accum uses steps_per_call=1")
         K = 1
-    loss_fn = make_loss_fn(model, process)
+    loss_fn = make_loss_fn(model, process, args.se3)
     logger = MetricLogger(jsonl_path=args.log, print_every=args.print_every)
     try:
         if args.epoch_accum:
@@ -276,6 +282,10 @@ def test(args) -> dict:
         return model(x, t)
 
     def sample(gen, proj, b):
+        if not args.se3:
+            out = process.p_sample_loop(denoise, gen, (b, 6), projection=proj)
+            return AffineT(euler_to_rmat(out[..., 0], out[..., 1], out[..., 2]),
+                           out[..., 3:]), None
         if args.sampler == "ddim":
             return process.ddim_sample_loop(denoise, gen, (b,), args.sampler_steps, proj), None
         if args.sampler == "pf":
@@ -296,7 +306,7 @@ def test(args) -> dict:
     seconds, launches0, chains = 0.0, igso3_cuda.launches, 0
     for b, idx in enumerate(batch_indices):
         batch = to_device(pad_prot_batch(_augmented(pairs, idx, args, rng), lr, ll), device)
-        proj = ProtProjection(batch)
+        proj = ProtProjection(batch, se3=args.se3)
         for s in range(SAMPLES):
             gen = torch.Generator(device=device)
             gen.manual_seed((args.seed + 1) * 1_000_003 + b * SAMPLES + s)
@@ -318,14 +328,18 @@ def test(args) -> dict:
             angles.append(ang[..., 0].cpu().numpy())
             shifts.append(torch.linalg.norm(aff.shift, dim=-1).cpu().numpy())
     angles, shifts = np.concatenate(angles), np.concatenate(shifts)
-    diff_type = "se3" if args.sampler == "ancestral" else f"se3_{args.sampler}{args.sampler_steps}"
+    sampler = args.sampler if args.se3 else "ancestral"
+    diff_type = "se3" if args.se3 else "eul"
+    if sampler != "ancestral":
+        diff_type += f"_{sampler}{args.sampler_steps}"
     print_percentiles(angles, shifts, diff_type)
     arm = os.path.basename(os.path.normpath(args.ckpt)) or diff_type
-    if args.sampler != "ancestral":
-        arm += f"_{args.sampler}{args.sampler_steps}"
+    if sampler != "ancestral":
+        arm += f"_{sampler}{args.sampler_steps}"
     record = {
-        "sampler": args.sampler, "sampler_steps": args.sampler_steps,
-        "pf_method": args.pf_method if args.sampler == "pf" else None,
+        "arm": "se3" if args.se3 else "eul",
+        "sampler": sampler, "sampler_steps": args.sampler_steps,
+        "pf_method": args.pf_method if sampler == "pf" else None,
         "poses": int(len(angles)), "sample_seconds": seconds,
         "model_evals": evals[0] // max(chains, 1),
         "launches": igso3_cuda.launches - launches0, "sweeps": sweeps,
@@ -348,7 +362,8 @@ def parse_args(argv=None):
     p.add_argument("--heads", type=int, default=8)
     p.add_argument("--t_depth", type=int, default=12)
     p.add_argument("--c_depth", type=int, default=8)
-    p.add_argument("--se3", action="store_true")
+    p.add_argument("--se3", action="store_true",
+                   help="SE(3) diffusion (without: the Euler-angle + shift arm)")
     p.add_argument("--clip-shift", dest="clip_shift", type=float, default=75.0,
                    help="clamp the sampler's predicted x0 shift to +-this (0 = off, "
                         "reference parity: the reference sampler random-walks)")
@@ -395,7 +410,8 @@ def parse_args(argv=None):
     p.add_argument("--sampler", choices=("ancestral", "ddim", "pf", "picard"),
                    default="ancestral",
                    help="evaluation sampler: the 1000-step ancestral chain, DDIM, "
-                        "probability flow, or Picard (parallel-in-time) DDIM")
+                        "probability flow, or Picard (parallel-in-time) DDIM (--se3 only: "
+                        "the Euler arm samples with the ancestral chain)")
     p.add_argument("--sampler-steps", dest="sampler_steps", type=int, default=50,
                    help="model evaluations for --sampler ddim/pf/picard")
     p.add_argument("--pf-method", dest="pf_method",
@@ -422,7 +438,9 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    check_ported(args)
+    if not args.se3 and args.sampler != "ancestral":
+        print(f"--sampler {args.sampler} applies to --se3 only; the Euler arm samples "
+              "with the ancestral chain")
     with torch.autograd.set_detect_anomaly(args.debug_nans):
         return test(args) if args.test else train(args)
 

@@ -150,6 +150,7 @@ class PoolFrame(nn.Module):
 
 
 _MASKED = torch.finfo(torch.float32).min  # what flax gives a masked logit
+_FUSED_MASKED = -1e9  # what the JAX package's FusedSelfAttention gives one
 
 
 class _AttentionBlock(nn.Module):
@@ -159,21 +160,43 @@ class _AttentionBlock(nn.Module):
     most negative finite value before the softmax, as in flax.  The softmax
     runs in float32 under autocast (in float64 on float64 weights)."""
 
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, fused_qkv: bool = False):
         super().__init__()
         if dim % heads:
             raise ValueError(f"dim {dim} is not divisible by heads {heads}")
         self.heads = heads
-        self.query = dense(dim, dim)
-        self.key = dense(dim, dim)
-        self.value = dense(dim, dim)
+        self.fused_qkv = fused_qkv
+        if fused_qkv:
+            self.qkv = dense(dim, 3 * dim)
+        else:
+            self.query = dense(dim, dim)
+            self.key = dense(dim, dim)
+            self.value = dense(dim, dim)
         self.out = dense(dim, dim)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.ff1 = dense(dim, DIM_FEEDFORWARD)
         self.ff2 = dense(DIM_FEEDFORWARD, dim)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
 
+    def _fused_attention(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        """Self-attention through one (dim, 3 dim) projection, as the JAX
+        package's ``FusedSelfAttention`` computes it: logits q.k scaled by
+        1/sqrt(head_dim) after the product, masked logits set to -1e9 in
+        the logits' dtype, the softmax in float32 cast back."""
+        b, s, dim = x.shape
+        hd = dim // self.heads
+        qkv = self.qkv(x).reshape(b, s, 3, self.heads, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]  # (B, H, S, hd)
+        logits = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+        if mask is not None:
+            logits = logits.masked_fill(~mask, _FUSED_MASKED)
+        weights = torch.softmax(widen(logits), dim=-1).to(v.dtype)
+        o = torch.matmul(weights, v).transpose(1, 2).reshape(b, s, dim)
+        return self.out(o)
+
     def _attention(self, x: torch.Tensor, ctx: torch.Tensor, mask=None) -> torch.Tensor:
+        if self.fused_qkv:
+            return self._fused_attention(x, mask)
         b, s, dim = x.shape
         hd = dim // self.heads
 
@@ -197,14 +220,9 @@ class _AttentionBlock(nn.Module):
 
 
 class TransformerEncoderLayer(_AttentionBlock):
-    """Post-norm self-attention + ReLU feed-forward block.  ``fused_qkv``
-    (one (dim, 3 dim) projection) is the JAX package's option and waits for
-    ROADMAP.md A.2."""
-
-    def __init__(self, dim: int, heads: int, fused_qkv: bool = False):
-        if fused_qkv:
-            raise NotImplementedError("fused_qkv is not ported yet: ROADMAP.md A.2")
-        super().__init__(dim, heads)
+    """Post-norm self-attention + ReLU feed-forward block.  ``fused_qkv``:
+    one (dim, 3 dim) projection for q, k and v (the JAX package's
+    ``FusedSelfAttention``)."""
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         return self._block(x, x, mask)

@@ -8,18 +8,26 @@ from typing import NamedTuple
 import torch
 
 from ..ops.se3 import AffineT, ProtData
+from ..ops.so3 import euler_to_rmat
 
 __all__ = ["PointCloudProj", "ProtBatch", "move_prot_batch", "ProtProjection"]
 
 
+def _euler_rot(x: torch.Tensor) -> torch.Tensor:
+    return euler_to_rmat(x[..., 0], x[..., 1], x[..., 2])
+
+
 class PointCloudProj:
-    """``data @ R^T``: every point of each cloud rotated by the state's R
-    (the SO(3) arm; the Euler arm's angle decoding comes with that arm)."""
+    """``data @ R^T``: every point of each cloud rotated by the state's R.
+    ``so3=False`` (the Euler arm): the state is (B, 3) XYZ Euler angles,
+    decoded to R first."""
 
-    def __init__(self, data: torch.Tensor):
+    def __init__(self, data: torch.Tensor, so3: bool = True):
         self.data = data  # (B, N, 3)
+        self.so3 = so3
 
-    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        r = x if self.so3 else _euler_rot(x)
         return torch.matmul(self.data, r.transpose(-1, -2))
 
 
@@ -60,15 +68,17 @@ class ProtProjection:
     Picard sampler evaluates every grid point of a sweep in one call, its
     row s * B + j being protein j at grid point s.  The batch is then tiled
     k times in that order (the JAX package's ``ProtProjection`` holds only
-    the B proteins and fails on such a call)."""
+    the B proteins and fails on such a call).  ``se3=False`` (the Euler
+    arm): the state is (B, 6), XYZ Euler angles then the shift, decoded to
+    an AffineT first."""
 
     def __init__(self, batch: ProtBatch, se3: bool = True):
-        if not se3:
-            raise NotImplementedError("the Euler arm of the protein projection is not "
-                                      "ported yet: ROADMAP.md A.2")
         self.batch = batch
+        self.se3 = se3
 
-    def __call__(self, transforms: AffineT) -> ProtBatch:
+    def __call__(self, transforms) -> ProtBatch:
+        if not self.se3:
+            transforms = AffineT(_euler_rot(transforms[..., :3]), transforms[..., 3:])
         batch = self.batch
         b, n = batch.receptor_mask.shape[0], transforms.shift.shape[0]
         if n != b:

@@ -1,7 +1,8 @@
 """Protein docking denoiser (counterpart of
 ``diffusion_extensions_tpu/models/protnet.py``).
 
-(ProtBatch, t) -> AffineGrad.  Each chain's tokens are a width-3 residue
+(ProtBatch, t) -> AffineGrad (``se3=False``: the raw (B, 6) vector, the
+Euler arm's noise estimate).  Each chain's tokens are a width-3 residue
 convolution, a Siren of the C-alpha positions and a Siren of the flattened
 frames; a post-norm transformer encodes them (both chains in one call with a
 block-diagonal mask when the encoders are shared), optional cross-attention
@@ -138,16 +139,16 @@ def receptor_moment_frame(w: torch.Tensor, positions: torch.Tensor, mask: torch.
 
 
 class ProtNet(nn.Module):
-    """(ProtBatch, t) -> AffineGrad (the Euler arm's raw 6-vector output
-    waits for ROADMAP.md A.2)."""
+    """(ProtBatch, t) -> AffineGrad, or with ``se3=False`` the (B, 6)
+    vector (rotation part first) from the same weights."""
 
     def __init__(self, dim: int = 64, heads: int = 4, t_depth: int = 4, c_depth: int = 3,
-                 share_encoders: bool = True, bf16: bool = False,
+                 se3: bool = True, share_encoders: bool = True, bf16: bool = False,
                  frame_pool: bool = False, cross_depth: int = 0, rel_frame: bool = False,
                  equiv_head: bool = False, fuse_chains: bool = True, fused_qkv: bool = False,
                  conv_impl: str = "xla_conv"):
         super().__init__()
-        self.bf16 = bf16
+        self.se3, self.bf16 = se3, bf16
         self.share_encoders, self.fuse_chains = share_encoders, fuse_chains
         self.frame_pool, self.rel_frame, self.equiv_head = frame_pool, rel_frame, equiv_head
         pos_dim, ang_dim = dim // 2, dim // 4
@@ -259,4 +260,6 @@ class ProtNet(nn.Module):
             rot = torch.einsum("...ji,...j->...i", rhat, out[..., :3])
             shf = torch.einsum("...ji,...j->...i", rhat, out[..., 3:])
             out = torch.cat((rot, shf), dim=-1)
+        if not self.se3:
+            return out
         return AffineGrad(rot_g=out[..., :3], shift_g=out[..., 3:])

@@ -1,5 +1,5 @@
-"""MLP rotation denoiser of the toy, lock and Bingham experiments
-(counterpart of ``RotPredict`` in ``diffusion_extensions_tpu/models/rot_predict.py``)."""
+"""MLP rotation denoisers of the toy, lock and Bingham experiments
+(counterpart of ``diffusion_extensions_tpu/models/rot_predict.py``)."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +8,7 @@ from torch import nn
 from ..ops.so3 import six2rmat
 from .layers import ResMLPBlock, SinusoidalPosEmb, dense
 
-__all__ = ["RotPredict"]
+__all__ = ["RotPredict", "EulerRotPredict"]
 
 
 class RotPredict(nn.Module):
@@ -50,3 +50,26 @@ class RotPredict(nn.Module):
             h = nn.functional.silu(block(h)) if self.variant == "mlp" else block(h)
         out = self.out(h)
         return six2rmat(out) if self.out_type == "rotmat" else out
+
+
+class EulerRotPredict(nn.Module):
+    """Euler-angle-input baseline of the lock ablation: the angles (3) and
+    a sinusoidal embedding of t (d_model - 3), 6 residual Linear + SiLU
+    blocks, a Linear head to (B, 3).  Its modules are named as
+    ``RotPredict(variant="resnet", out_type="skewvec")``'s, whose weights
+    have the same shapes at the same d_model."""
+
+    def __init__(self, d_model: int = 255):
+        super().__init__()
+        self.t_emb = SinusoidalPosEmb(d_model - 3)
+        self.hidden = nn.ModuleList(ResMLPBlock(d_model) for _ in range(6))
+        self.out = dense(d_model, 3)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        t_emb = self.t_emb(t)
+        if t_emb.shape[0] == 1:
+            t_emb = t_emb.expand(x.shape[0], t_emb.shape[-1])
+        h = torch.cat((x, t_emb), dim=-1)
+        for block in self.hidden:
+            h = block(h)
+        return self.out(h)

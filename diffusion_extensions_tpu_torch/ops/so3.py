@@ -25,6 +25,7 @@ __all__ = [
     "six2rmat",
     "quat_to_rmat",
     "euler_to_rmat",
+    "rmat_to_euler",
     "orthogonalise",
     "haar_rotations",
 ]
@@ -226,6 +227,17 @@ def euler_to_rmat(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Te
         dim=-1,
     )
     return o.reshape(*x.shape, 3, 3)
+
+
+def rmat_to_euler(rmat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """XYZ Euler decomposition (x, y, z), the inverse of ``euler_to_rmat``
+    for |y| < pi/2.  At |y| = pi/2 (gimbal lock) sy = 0 and x and z are
+    each ill-defined; only the rotation they compose back to is."""
+    sy = torch.sqrt(rmat[..., 0, 0] * rmat[..., 0, 0] + rmat[..., 1, 0] * rmat[..., 1, 0])
+    x = torch.atan2(rmat[..., 2, 1], rmat[..., 2, 2])
+    y = torch.atan2(rmat[..., 2, 0], sy)
+    z = torch.atan2(rmat[..., 1, 0], rmat[..., 0, 0])
+    return x, y, z
 
 
 def orthogonalise(mat: torch.Tensor) -> torch.Tensor:

@@ -174,13 +174,18 @@ class SO3Diffusion:
         noise = torch.where((t == 0)[..., None, None], eye, noise)
         return rmul(mean, noise)
 
-    def _init_state(self, generator, shape, x_init):
-        """``x_init``, else Haar QR (projected) or the eps = 1 prior."""
+    def _init_state(self, generator, shape, x_init, init=None):
+        """``x_init``, else ``init``: "qr" (Haar QR) or "igso3" (the eps = 1
+        prior); by default "qr" when ``projected``."""
         if x_init is not None:
             return x_init
         if isinstance(shape, int):
             shape = (shape,)
-        if self.projected:
+        if init is None:
+            init = "qr" if self.projected else "igso3"
+        if init not in ("qr", "igso3"):
+            raise ValueError(f"Unexpected init: {init}")
+        if init == "qr":
             return haar_rotations(generator, (shape[0],), device=self.device)
         zeros = torch.zeros(shape, dtype=torch.long, device=self.device)
         return self.prior_table.sample(generator, zeros)
@@ -196,11 +201,12 @@ class SO3Diffusion:
         projection=None,
         return_trajectory: bool = False,
         x_init=None,
+        init=None,
     ):
         """The T-step ancestral chain.  With ``return_trajectory`` also the
         (T, B, 3, 3) states indexed by timestep (the state before that
         timestep's step)."""
-        x = self._init_state(generator, shape, x_init)
+        x = self._init_state(generator, shape, x_init, init)
         b = x.shape[0]
         traj = []
         for i in range(self.num_timesteps - 1, -1, -1):
@@ -219,9 +225,10 @@ class SO3Diffusion:
         num_steps: int = 50,
         projection=None,
         x_init=None,
+        init=None,
     ):
         """Deterministic DDIM on SO(3): ``num_steps`` model evaluations."""
-        x = self._init_state(generator, shape, x_init)
+        x = self._init_state(generator, shape, x_init, init)
         b = x.shape[0]
         ts = _linspace_grid(self.num_timesteps, num_steps)
         for i in range(num_steps):
@@ -276,6 +283,7 @@ class SO3Diffusion:
         method: str = "flow",
         grid: str = "karras",
         x_init=None,
+        init=None,
     ):
         """Probability-flow (ODE) sampler on SO(3).
 
@@ -287,7 +295,7 @@ class SO3Diffusion:
         ``pf_time_grid``."""
         if method not in ("flow", "euler", "heun"):
             raise ValueError(f"Unexpected pf method: {method}")
-        x = self._init_state(generator, shape, x_init)
+        x = self._init_state(generator, shape, x_init, init)
         b = x.shape[0]
         ts = pf_time_grid(self.schedule, num_steps, grid)
         s = self.schedule
@@ -338,6 +346,7 @@ class SO3Diffusion:
         grid: str = "karras",
         return_sweeps: bool = False,
         x_init=None,
+        init=None,
     ):
         """Parallel-in-time (Picard) sampling of the deterministic reverse
         chain (ParaDiGMS, arXiv:2305.16317, on SO(3)).
@@ -360,7 +369,7 @@ class SO3Diffusion:
         """
         if method not in ("ddim", "flow"):
             raise ValueError(f"Unexpected parallel method: {method}")
-        x0 = self._init_state(generator, shape, x_init)
+        x0 = self._init_state(generator, shape, x_init, init)
         b = x0.shape[0]
         S = num_steps
         if method == "flow":

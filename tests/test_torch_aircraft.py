@@ -51,4 +51,4 @@ def test_data_matches_jax_package():
     with pytest.raises(FileNotFoundError):
         ShapeNet("test", root="/nonexistent")
     with pytest.raises(SystemExit):
-        aircraft.main([a for a in ARGS if a != "--so3"])
+        aircraft.main(ARGS + ["--tp", "2"])

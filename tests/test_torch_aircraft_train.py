@@ -164,10 +164,9 @@ def test_loss_falls_over_200_small_steps(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [(["--tp", "2"], "A.8"), (["--sp", "2"], "A.8"),
-                                       (["--fsdp"], "A.8"), (["--moe-experts", "4"], "A.8"),
-                                       ([], "A.2")])
+                                       (["--fsdp"], "A.8"), (["--moe-experts", "4"], "A.8")])
 def test_flags_not_ported_yet_exit_with_the_roadmap_item(flag, item):
-    args = [a for a in SMALL if flag or a != "--so3"]  # no flag: the Euler arm
+    args = SMALL
     with pytest.raises(SystemExit, match=f"not ported yet.*ROADMAP.md.*{item}"):
         aircraft.main(args + flag + ["--steps", "1"])
     with pytest.raises(SystemExit, match="not ported yet"):

@@ -48,13 +48,15 @@ def test_port_and_chip_smoke_import_no_jax():
         timeout=300,
     )
     assert res.returncode == 0, res.stderr
-    # package + ops(8) + processes(4) + models(6) + data(5) + experiments(4) + convert
+    # package + ops(8) + processes(6) + models(6) + data(5) + experiments(6) + convert
     # + train(4) + parallel(2)
     lines = res.stdout.strip().splitlines()
-    assert int(lines[-1]) >= 35
+    assert int(lines[-1]) >= 39
     imported = set(lines[-2].split())
     pkg = "diffusion_extensions_tpu_torch"
     assert {f"{pkg}.train.optim", f"{pkg}.train.state", f"{pkg}.train.loop",
             f"{pkg}.parallel.dp", f"{pkg}.data.native", f"{pkg}.ops.se3", f"{pkg}.data.pdb",
             f"{pkg}.models.protnet", f"{pkg}.processes.se3",
-            f"{pkg}.experiments.protein"} <= imported
+            f"{pkg}.experiments.protein", f"{pkg}.processes.r3", f"{pkg}.processes.euler",
+            f"{pkg}.experiments.so3_toy", f"{pkg}.experiments.lock",
+            f"{pkg}.models.rot_predict", f"{pkg}.data.synthetic"} <= imported

@@ -202,13 +202,6 @@ def test_driver_writes_nothing_under_results(tmp_path, monkeypatch):
     assert after == before
 
 
-def test_euler_arm_exits_with_its_roadmap_item():
-    with pytest.raises(SystemExit, match="ROADMAP.md A.2"):
-        protein.main(["--device", "cpu", "--steps", "1"])
-    with pytest.raises(SystemExit, match="ROADMAP.md A.2"):
-        protein.main(["--device", "cpu", "--test"])
-
-
 def test_training_defaults_to_the_card():
     """Without --device the driver runs on CUDA; with no card here that
     fails instead of falling back to the CPU."""

@@ -148,7 +148,7 @@ def test_headline_width_maps_every_leaf():
     assert len(flat) == 310
     assert sum(int(np.prod(s)) for s in flat.values()) == 163_077_652
     cfg = protnet_config_from_flax(shapes)
-    assert cfg == dict(HEADLINE, share_encoders=True)
+    assert cfg == dict(HEADLINE, share_encoders=True, fused_qkv=False)
     table, mapping = _protnet_tables(cfg)
     assert table == flat and set(mapping) == set(flat)
     with torch.device("meta"):
@@ -177,7 +177,10 @@ def test_converter_raises_on_bad_trees(batch):
         protnet_params_from_flax(head)
     with pytest.raises(ValueError, match="not a flax ProtNet"):
         protnet_config_from_flax({"Dense_0": {}})
-    with pytest.raises(NotImplementedError, match="A.2"):
-        ProtNet(**SMALL, fused_qkv=True)
+    fused = dict(tree["TransformerEncoder_0"])
+    fused["TransformerEncoderLayer_0"] = {
+        "FusedSelfAttention_0": {"out": {"kernel": np.zeros((32, 32), np.float32)}}}
+    with pytest.raises(ValueError, match="heads"):
+        protnet_config_from_flax(dict(tree, TransformerEncoder_0=fused))
     with pytest.raises(ValueError, match="conv_impl"):
         ProtNet(**SMALL, conv_impl="fft")

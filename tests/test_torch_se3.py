@@ -124,8 +124,3 @@ def test_prot_projection_tiles_the_batch_for_k_b_transforms(k):
     with pytest.raises(ValueError, match="7 transforms"):
         ProtProjection(tb)(_pair(7, 1)[0])
 
-
-def test_prot_projection_euler_arm_waits():
-    _, tb = _batch()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.2"):
-        ProtProjection(tb, se3=False)
