@@ -6,7 +6,7 @@
 Builds every CUDA kernel of the port from the sources in this checkout (one
 nvcc per source, all started together; prints what ptxas says of each and,
 where cuobjdump is there, the SASS instruction counts), holds each against
-its plain PyTorch version on the card, then drives ten paths at full size,
+its plain PyTorch version on the card, then drives twelve paths at full size,
 each with the kernels' launch counts set to 0 just before it and read just
 after:
 
@@ -57,11 +57,25 @@ after:
 * ``experiments/so3_toy.py``: 2000 steps at K = 16, then ``--test`` with the
   ancestral, DDIM-50 and probability-flow-50 samplers over 512 chains;
 * ``experiments/lock.py``, both ``--param`` arms: 2000 eager steps each,
-  then ``--test`` over 512 chains (|axis . y|, the in-range fraction).
+  then ``--test`` over 512 chains (|axis . y|, the in-range fraction);
+* ``experiments/jigsaw.py`` at the JAX driver's width (CoordConv size 128,
+  145,378 parameters, seeded init, batch 256, ProjectedGaussianDiffusion
+  T = 1000, a fresh puzzle a step rendered on the card): 10 + 50 timed eager
+  steps (ms, TFLOP/s against the convolutions' FLOPs, peak memory), 200
+  steps whose loss must fall, 2N steps against N + save + restore + N to
+  the bit, 20 steps twice with cuDNN's deterministic algorithms off and on
+  (same bits? ms a step), then ``--test``: the 1000-step chain over 64
+  samples and the placement error in pixels;
+* the diagnostics: ``diagnostics se3-path`` at its defaults (14 poses x
+  1000 forward steps, each an IGSO3xR3 draw, gated on SO(3) and finite
+  shifts), ``grad_check`` at its defaults (2000 Adam steps, the loss must
+  halve), and ``IGSO3xR3.log_prob`` over 50,000 poses (kernel 1) against
+  the CPU's; no figure (the card's machine has no matplotlib).
 
 Small runs hold the card against the CPU: sampling (aircraft Heun, Bingham
 DDIM), training, the protein slice, and the Euler arms (an aircraft Euler
-chain, protein Euler steps, five lock-arm losses per arm).
+chain, protein Euler steps, five lock-arm losses per arm), and the jigsaw
+slice (images, forward, loss, a 20-step chain).
 Every phase prints JSON lines, and the seconds each phase took; any failure
 raises and exits non-zero.  The last lines are the kernels' summary, the
 card's name and power limit as nvidia-smi reports them, and
@@ -87,6 +101,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from diffusion_extensions_tpu_torch.data.jigsaw import JigsawPuzzle, puzzle_rows
 from diffusion_extensions_tpu_torch.data.pdb import (
     pad_prot_batch,
     synthetic_prot_pair,
@@ -94,14 +109,28 @@ from diffusion_extensions_tpu_torch.data.pdb import (
 )
 from diffusion_extensions_tpu_torch.data.shapenet import BatchLoader, synthetic_planes
 from diffusion_extensions_tpu_torch.data.synthetic import bingham_dist
-from diffusion_extensions_tpu_torch.experiments import aircraft, bingham, lock, protein, so3_toy
+from diffusion_extensions_tpu_torch.experiments import (
+    aircraft,
+    bingham,
+    diagnostics,
+    grad_check,
+    jigsaw,
+    lock,
+    protein,
+    so3_toy,
+)
 from diffusion_extensions_tpu_torch.experiments.aircraft import subsample_points
+from diffusion_extensions_tpu_torch.models.coordconv import STAGES, WIDTH, CoordConv
 from diffusion_extensions_tpu_torch.models.planenet import PlaneNet
 from diffusion_extensions_tpu_torch.models.projections import PointCloudProj, ProtProjection
 from diffusion_extensions_tpu_torch.models.protnet import ProtNet
 from diffusion_extensions_tpu_torch.models.rot_predict import RotPredict
 from diffusion_extensions_tpu_torch.ops import _build, igso3_cuda, mmd_cuda
-from diffusion_extensions_tpu_torch.ops.igso3 import IsotropicGaussianSO3, igso3_log_density
+from diffusion_extensions_tpu_torch.ops.igso3 import (
+    IGSO3xR3,
+    IsotropicGaussianSO3,
+    igso3_log_density,
+)
 from diffusion_extensions_tpu_torch.ops.metrics import mmd
 from diffusion_extensions_tpu_torch.ops.se3 import AffineT
 from diffusion_extensions_tpu_torch.ops.so3 import (
@@ -203,6 +232,15 @@ PROTEIN_EULER_ARGV = [a for a in PROTEIN_ARGV if a != "--se3"]
 # (batch 32, eager steps), cut from 200,000 / 100,000 steps; --test over 512
 # chains
 SUITES = dict(toy_steps=2000, toy_k=16, lock_steps=2000, eval_batch=512)
+# the jigsaw suite at the JAX driver's width (CoordConv size 128, batch 256,
+# T = 1000, seeded init): 10 + 50 timed eager steps, 200 whose loss must fall
+# (cut from 40,000), N of N + save + restore + N, steps timed with and
+# without cuDNN's deterministic algorithms, --test over 64 chains
+JIGSAW = dict(size=128, batch=256, timesteps=1000, warmup=10, timed=50, fall_steps=200,
+              exact_n=10, det_steps=20, eval_batch=64)
+# the diagnostics: se3-path and grad_check at their defaults, IGSO3xR3.log_prob
+# over 50,000 poses on the card against the CPU
+DIAG = dict(se3_samples=14, se3_steps=1000, grad_iters=2000, log_prob_n=50_000)
 
 
 def emit(phase: str, **fields) -> None:
@@ -296,6 +334,23 @@ def protein_flops(dim: int, heads: int, t_depth: int, c_depth: int, cross_depth:
     head_in = 3 * dim + 6 + 78 + 72 + 36
     flops += batch * 2 * (head_in * dim + 3 * dim * dim + 6 * dim)
     return flops
+
+
+def coordconv_flops(size: int, dim: int = 16) -> tuple[float, float]:
+    """(forward FLOPs of one image, those of its train step): 2 x 9 Cin Cout
+    H W a 3x3 conv; a train step adds each conv's weight gradient (its
+    forward's FLOPs again) and the input gradient of every conv but the
+    first (the rendered image needs none).  ELU, pooling and the mean are
+    not counted."""
+    convs, hw, cin = [], size, 3 + 2 + dim
+    for n in STAGES:
+        for _ in range(n):
+            convs.append(2 * 9 * cin * WIDTH * hw * hw)
+            cin = WIDTH
+        hw //= 2
+    convs.append(2 * 9 * WIDTH * 2 * hw * hw)
+    fwd = float(sum(convs))
+    return fwd, 3 * fwd - convs[0]
 
 
 def kernel_inputs(n: int, seed: int):
@@ -1578,6 +1633,220 @@ def phase_lock(tmp: str) -> dict:
             "gaussian_kernel_sum": mmd_cuda.launches}
 
 
+def small_jigsaw_agreement() -> None:
+    """The jigsaw slice on the card against the same on the CPU, at size 128
+    and batch 2 from one seeded init: the rendered images (every pixel
+    equal), the CoordConv forward (1e-4 of the output's scale), the l2 loss
+    at fixed t and noise (rtol 1e-4), and a 20-step projected ancestral
+    chain from the same x_init and noise (1e-3 of 1 + the state's largest
+    entry, as the other chains are held)."""
+    size, b, steps = JIGSAW["size"], 2, 20
+    jp = JigsawPuzzle(size=size, seed=31)
+    row = torch.from_numpy(puzzle_rows([31], size)[0])
+    gen = torch.Generator().manual_seed(32)
+    x = torch.randn(16, 2, generator=gen) * 1.5
+    t = torch.randint(0, steps, (b,), generator=gen)
+    noise = torch.randn(b, 2, generator=gen)
+    x_init = torch.randn(b, 2, generator=gen)
+    chain_noise = torch.randn(steps, b, 2, generator=gen)
+    torch.manual_seed(33)
+    state0 = CoordConv(size=size).state_dict()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = CoordConv(size=size)
+        model.load_state_dict(state0)
+        model = model.to(dev)
+        proc = ProjectedGaussianDiffusion(steps, loss_type="l2", device=dev)
+        imgs = jp(x.to(dev))
+        with torch.inference_mode():
+            fwd = model(imgs[:b], t.to(dev))
+            chain = proc.p_sample_loop(model, None, (b, 2), projection=jp, x_init=x_init.to(dev),
+                                       noise=chain_noise.to(dev))
+        loss = jigsaw.make_loss_fn(model, proc, b, size)(
+            None, (row.to(dev), t.to(dev), noise.to(dev)))
+        out[dev] = {"imgs": imgs.cpu(), "fwd": fwd.cpu(), "chain": chain.cpu(),
+                    "loss": float(loss.detach())}
+    cpu, card = out["cpu"], out["cuda"]
+    res = {
+        "pixels_differing": int((cpu["imgs"] != card["imgs"]).any(1).sum()),
+        "forward_err": float((card["fwd"] - cpu["fwd"]).abs().max())
+        / float(cpu["fwd"].abs().max()),
+        "loss_rel_err": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+        "chain_err": float((card["chain"] - cpu["chain"]).abs().max())
+        / (1.0 + float(cpu["chain"].abs().max())),
+    }
+    emit("small_agreement", run="jigsaw", forward_tol=1e-4, loss_rtol=1e-4, chain_tol=1e-3,
+         **res)
+    if not (res["pixels_differing"] == 0 and res["forward_err"] < 1e-4
+            and res["loss_rel_err"] < 1e-4 and res["chain_err"] < 1e-3):
+        raise AssertionError(f"jigsaw: card and CPU disagree: {res}")
+
+
+def jigsaw_determinism() -> dict:
+    """Two runs of ``det_steps`` eager train steps from one init, with cuDNN's
+    deterministic algorithms off and on: whether the two runs end on the
+    same bits, and the ms a step (CUDA events, after 3 warm-up steps)."""
+    device = torch.device("cuda")
+    args = jigsaw.parse_args(["--batch", str(JIGSAW["batch"])])
+    rows = torch.from_numpy(puzzle_rows(jigsaw.step_seeds(0, 0, JIGSAW["det_steps"]))).to(device)
+    out = {}
+    before = torch.backends.cudnn.deterministic
+    try:
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            finals, ms = [], []
+            for _ in range(2):
+                model, process = jigsaw.build(args, device)
+                opt = make_optimizer(model.named_parameters(), args.lr)
+                state = TrainState(model, opt, torch.Generator(device=device).manual_seed(0))
+                step = make_dp_train_step(jigsaw.make_loss_fn(model, process, args.batch,
+                                                              args.size), model, opt)
+                for i in range(3):
+                    step(state, rows[i])
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for i in range(3, JIGSAW["det_steps"]):
+                    step(state, rows[i])
+                end.record()
+                sync()
+                ms.append(start.elapsed_time(end) / (JIGSAW["det_steps"] - 3))
+                finals.append([p.detach().clone() for p in model.parameters()])
+            key = "deterministic" if det else "default"
+            out[f"{key}_same_bits"] = all(torch.equal(a, b) for a, b in zip(*finals))
+            out[f"{key}_max_diff"] = max(float((a - b).abs().max()) for a, b in zip(*finals))
+            out[f"{key}_ms"] = ms
+    finally:
+        torch.backends.cudnn.deterministic = before
+    return out
+
+
+def phase_jigsaw(tmp: str) -> dict:
+    """experiments/jigsaw.py at full width: timed eager steps (ms, TFLOP/s
+    against ``coordconv_flops``, peak memory), a run whose loss must fall,
+    2N steps against N + save + restore + N to the bit, cuDNN determinism
+    and its cost, then ``--test`` (the 1000-step chain over 64 samples) on
+    the falling run's checkpoint; returns each kernel's launches."""
+    igso3_cuda.launches = mmd_cuda.launches = 0
+    base = ["--batch", str(JIGSAW["batch"]), "--size", str(JIGSAW["size"]), "--timesteps",
+            str(JIGSAW["timesteps"])]
+    steps = JIGSAW["warmup"] + JIGSAW["timed"]
+    log = os.path.join(tmp, "jigsaw_timed.jsonl")
+    torch.cuda.reset_peak_memory_stats()
+    state = jigsaw.main(base + ["--steps", str(steps), "--print-every", str(steps), "--ckpt",
+                                os.path.join(tmp, "jigsaw_timed"), "--log", log])
+    rows = read_jsonl(log)
+    sps = rows[-1]["steps_per_sec"]
+    _, step_flops = coordconv_flops(JIGSAW["size"])
+    step_flops *= JIGSAW["batch"]
+    emit("jigsaw", run="timed", steps=steps, timed_steps=JIGSAW["timed"], ms_per_step=1e3 / sps,
+         steps_per_sec=sps, step_tflop=step_flops / 1e12,
+         tflops_per_s=step_flops * sps / 1e12, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         loss_last=rows[-1]["loss"])
+    if state.step != steps or not np.isfinite(rows[-1]["loss"]):
+        raise AssertionError(f"jigsaw: step {state.step}, rows {rows}")
+
+    ckpt, log = os.path.join(tmp, "jigsaw_fall"), os.path.join(tmp, "jigsaw_fall.jsonl")
+    n = JIGSAW["fall_steps"]
+    run_captured(jigsaw.main, base + ["--steps", str(n), "--print-every", "1", "--ckpt", ckpt,
+                                      "--log", log])
+    rows = read_jsonl(log)
+    first = [r["loss"] for r in rows[:10]]
+    last = [r["loss"] for r in rows[-10:]]
+    emit("jigsaw", run="falling_loss", steps=n, losses_first_10=first, losses_last_10=last,
+         loss_first_10=float(np.mean(first)), loss_last_10=float(np.mean(last)),
+         steps_per_sec=rows[-1]["steps_per_sec"])
+    if len(rows) != n or not all(np.isfinite(r["loss"]) for r in rows) \
+            or not np.mean(last) < np.mean(first):
+        raise AssertionError(f"jigsaw: loss did not fall ({first} -> {last})")
+
+    n = JIGSAW["exact_n"]
+    a, b = os.path.join(tmp, "jigsaw_2n"), os.path.join(tmp, "jigsaw_nn")
+    quiet = base + ["--print-every", str(10 * n)]
+    run_captured(jigsaw.main, quiet + ["--steps", str(2 * n), "--ckpt", a])
+    run_captured(jigsaw.main, quiet + ["--steps", str(n), "--ckpt", b])
+    run_captured(jigsaw.main, quiet + ["--steps", str(2 * n), "--ckpt", b, "--resume"])
+    ra, rb = (torch.load(os.path.join(d, f"step_{2 * n:08d}.pt"), weights_only=True)
+              for d in (a, b))
+    diffs = [float((v - rb["params"][k]).abs().max()) for k, v in ra["params"].items()]
+    diffs += [float((v - rb["opt_state"][m][k]).abs().max())
+              for m in ("mu", "nu") for k, v in ra["opt_state"][m].items()]
+    same_gen = torch.equal(ra["generator_state"], rb["generator_state"])
+    emit("jigsaw", run="exact_resume", n=n, max_diff=max(diffs), same_generator=same_gen)
+    if max(diffs) != 0.0 or not same_gen:
+        raise AssertionError(f"jigsaw: N + save + restore + N differs from 2N by {max(diffs)}")
+    det = jigsaw_determinism()
+    emit("jigsaw", run="cudnn_determinism", steps=JIGSAW["det_steps"], **det)
+    if not det["deterministic_same_bits"]:
+        raise AssertionError(f"jigsaw: deterministic cuDNN steps differ run to run: {det}")
+
+    rec, text = run_captured(jigsaw.main, base + [
+        "--test", "--eval-batch", str(JIGSAW["eval_batch"]), "--ckpt", ckpt,
+        "--out-dir", os.path.join(tmp, "jigsaw_out")])
+    emit("jigsaw", run="test", seconds=rec["sample_seconds"], model_evals=rec["model_evals"],
+         count=rec["count"], finite=rec["finite"], px=rec["px"], diverged=rec["diverged"],
+         trained_steps=JIGSAW["fall_steps"])
+    if "untrained" in text or not rec["finite"] or rec["count"] != JIGSAW["eval_batch"] \
+            or rec["model_evals"] != JIGSAW["timesteps"]:
+        raise AssertionError(f"jigsaw --test: {rec['px']}")
+    return {"igso3_logpdf_score": igso3_cuda.launches,
+            "gaussian_kernel_sum": mmd_cuda.launches}
+
+
+def phase_diagnostics(tmp: str) -> dict:
+    """The compute-side diagnostics on the card: ``se3-path`` at its defaults
+    (finite shifts, every pose on SO(3)), ``grad_check`` at its defaults (its
+    loss must halve), and ``IGSO3xR3.log_prob`` over 50,000 poses against
+    the CPU's inside kernel 1's gates; no figure.  Returns each kernel's
+    launches."""
+    igso3_cuda.launches = mmd_cuda.launches = 0
+    t0 = time.perf_counter()
+    rots, shifts = diagnostics.main(["se3-path", "--out-dir", tmp])
+    seconds = time.perf_counter() - t0
+    steps, n = DIAG["se3_steps"], DIAG["se3_samples"]
+    r = torch.from_numpy(rots)
+    orth = float((r.transpose(-1, -2) @ r - torch.eye(3)).abs().max())
+    det = float((torch.linalg.det(r) - 1.0).abs().max())
+    emit("diagnostics", run="se3_path", seconds=seconds, steps=steps, samples=n,
+         orth_err=orth, det_err=det, shift_abs_max=float(np.abs(shifts).max()),
+         shift_std_last=float(shifts[-1].std()))
+    if rots.shape != (steps + 1, n, 3, 3) or shifts.shape != (steps + 1, n, 3) \
+            or not np.isfinite(shifts).all() or not (orth < 1e-4 and det < 1e-4):
+        raise AssertionError(f"se3-path: {rots.shape} {shifts.shape}, orth {orth}, det {det}")
+
+    t0 = time.perf_counter()
+    res, _ = run_captured(grad_check.main, [])
+    sync()
+    emit("diagnostics", run="grad_check", seconds=time.perf_counter() - t0, **res)
+    if res["iters"] != DIAG["grad_iters"] or not res["loss_last"] < 0.5 * res["loss_first"]:
+        raise AssertionError(f"grad_check: {res}")
+
+    m = DIAG["log_prob_n"]
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    eps = torch.rand(m, generator=gen, device="cuda") * 1.2 + 0.05
+    mean = AffineT(exp_skewvec(torch.randn(m, 3, generator=gen, device="cuda")),
+                   torch.randn(m, 3, generator=gen, device="cuda"))
+    dist = IGSO3xR3.create(eps, mean=mean, shift_scale=75.0, device="cuda")
+    value = dist.sample(gen)
+    launches0 = igso3_cuda.launches
+    lp = dist.log_prob(value)
+    rot_lp = dist.igso3.log_prob(value.rot)
+    sync()
+    launched = igso3_cuda.launches - launches0
+    cpu = IGSO3xR3.create(eps.cpu(), mean=AffineT(mean.rot.cpu(), mean.shift.cpu()),
+                          shift_scale=75.0, device="cpu")
+    value_cpu = AffineT(value.rot.cpu(), value.shift.cpu())
+    lp_err, lp_gate = gate(lp.cpu(), cpu.log_prob(value_cpu), *LOGF_TOL)
+    rot_err, rot_gate = gate(rot_lp.cpu(), cpu.igso3.log_prob(value_cpu.rot), *LOGF_TOL)
+    emit("diagnostics", run="igso3xr3_log_prob", n=m, launches=launched, max_abs_err=lp_err,
+         gate_ratio=lp_gate, rot_max_abs_err=rot_err, rot_gate_ratio=rot_gate,
+         finite=bool(torch.isfinite(lp).all()))
+    if launched != 2 or not (lp_gate <= 1.0 and rot_gate <= 1.0) or not torch.isfinite(lp).all():
+        raise AssertionError(f"IGSO3xR3.log_prob: launches {launched}, gates {lp_gate} {rot_gate}")
+    return {"igso3_logpdf_score": igso3_cuda.launches,
+            "gaussian_kernel_sum": mmd_cuda.launches}
+
+
 def timed(name: str, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -1612,10 +1881,17 @@ def main() -> None:
         euler_prot = timed("euler_protein", lambda: phase_euler_protein(tmp))
         toy = timed("so3_toy", lambda: phase_so3_toy(tmp))
         lock_suite = timed("lock", lambda: phase_lock(tmp))
+    timed("small_agreement_jigsaw", small_jigsaw_agreement)
+    with tempfile.TemporaryDirectory() as tmp:
+        jig = timed("jigsaw", lambda: phase_jigsaw(tmp))
+        diag = timed("diagnostics", lambda: phase_diagnostics(tmp))
+    if diag["igso3_logpdf_score"] == 0:
+        raise AssertionError(f"the diagnostics path launched no igso3_logpdf_score: {diag}")
     by_path = {"aircraft": aircraft_launches, "bingham": bing,
                "aircraft_train": air_train, "bingham_train": bing_train,
                "protein": prot, "protein_train": prot_train, "euler_aircraft": euler_air,
-               "euler_protein": euler_prot, "so3_toy": toy, "lock": lock_suite}
+               "euler_protein": euler_prot, "so3_toy": toy, "lock": lock_suite,
+               "jigsaw": jig, "diagnostics": diag}
     launches = {k: sum(p[k] for p in by_path.values()) for k in aircraft_launches}
     main_n = PATH["batch"]
     tm, big = check["timing"][main_n], check["timing"][2**20]

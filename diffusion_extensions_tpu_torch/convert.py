@@ -3,11 +3,12 @@
 ``planenet_params_from_flax(params_np)``,
 ``rot_predict_params_from_flax(params_np)``,
 ``euler_rot_predict_params_from_flax(params_np)`` and
-``protnet_params_from_flax(params_np)`` take a flax parameter tree as
+``protnet_params_from_flax(params_np)`` and
+``coordconv_params_from_flax(params_np)`` take a flax parameter tree as
 nested dicts of numpy arrays (with or without the top-level ``"params"``
 key) and return a state dict for ``models.planenet.PlaneNet``,
-``models.rot_predict.RotPredict``, ``models.rot_predict.EulerRotPredict``
-or ``models.protnet.ProtNet``; the ``*_config_from_flax`` functions give the
+``models.rot_predict.RotPredict``, ``models.rot_predict.EulerRotPredict``,
+``models.protnet.ProtNet`` or ``models.coordconv.CoordConv``; the ``*_config_from_flax`` functions give the
 constructor arguments.  The trees of ``EulerRotPredict(d)`` and of
 ``RotPredict(d, "skewvec", "resnet")`` have the same leaves and shapes, so
 no function can tell them apart: the caller says which model a tree is by
@@ -20,13 +21,17 @@ an optax Adam state (``ScaleByAdamState`` or the JAX package's
 one mid-training state.  flax ``Dense`` kernels are (in, out) and are
 transposed for ``nn.Linear``; the attention q/k/v kernels are (dim, heads,
 head_dim) with (heads, head_dim) biases, the output kernel (heads, head_dim,
-dim); a fused attention's ``qkv`` and ``out`` are plain Dense; conv kernels (3, Cin, Cout) become (Cout, Cin, 3).  Any missing, extra
+dim); a fused attention's ``qkv`` and ``out`` are plain Dense; conv1d
+kernels (3, Cin, Cout) become (Cout, Cin, 3), conv2d kernels (3, 3, Cin,
+Cout) (HWIO) become (Cout, Cin, 3, 3) (OIHW).  Any missing, extra
 or mis-shaped leaf raises.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .models.coordconv import STAGES, WIDTH
 
 __all__ = [
     "planenet_params_from_flax",
@@ -37,6 +42,7 @@ __all__ = [
     "euler_rot_predict_config_from_flax",
     "protnet_params_from_flax",
     "protnet_config_from_flax",
+    "coordconv_params_from_flax",
     "adam_state_from_optax",
 ]
 
@@ -339,6 +345,20 @@ def protnet_params_from_flax(params_np, heads: int | None = None) -> dict[str, t
     """State dict for ``ProtNet(**protnet_config_from_flax(params_np, heads))``."""
     shapes, mapping = _protnet_tables(protnet_config_from_flax(params_np, heads))
     return _convert("ProtNet", params_np, shapes, mapping)
+
+
+def coordconv_params_from_flax(params_np, dim: int = 16) -> dict[str, torch.Tensor]:
+    """State dict for ``CoordConv(size, dim)`` (the tree holds no size):
+    flax ``Conv_i`` is ``convs.i``, 16 convs of width 32 (the first reads
+    3 + 2 + ``dim`` channels), then ``Conv_16`` to two channels."""
+    widths = [3 + 2 + dim] + [WIDTH] * sum(STAGES) + [2]
+    expected, mapping = {}, {}
+    for i, (cin, cout) in enumerate(zip(widths[:-1], widths[1:])):
+        expected.update({f"Conv_{i}/kernel": (3, 3, cin, cout), f"Conv_{i}/bias": (cout,)})
+        mapping.update({f"Conv_{i}/kernel": (f"convs.{i}.weight",
+                                             lambda a: a.transpose(3, 2, 0, 1)),
+                        f"Conv_{i}/bias": (f"convs.{i}.bias", lambda a: a)})
+    return _convert("CoordConv", params_np, expected, mapping)
 
 
 def adam_state_from_optax(mu_np, nu_np, count, state_dtype=torch.float32) -> dict:

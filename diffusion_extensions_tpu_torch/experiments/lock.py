@@ -21,8 +21,9 @@ mean |axis . y| of the samples (1 = on the segment's axis), their mean
 angle and the fraction within 0.1 rad of [pi/3, 2 pi/3], and writes the
 samples to ``--out-dir`` (default ``torch_results/``) as
 ``torch_lock_samples_{param}.npy`` and the numbers as
-``torch_lock_{param}.json``.  Runs on the card unless ``--device`` says
-otherwise.
+``torch_lock_{param}.json`` (``--plot``: the final frames on the sphere,
+``torch_lock_sphere_{param}.png``).  Runs on the card unless ``--device``
+says otherwise.
 """
 from __future__ import annotations
 
@@ -156,6 +157,13 @@ def test(args) -> dict:
             rots.cpu().numpy())
     with open(os.path.join(args.out_dir, f"torch_lock_{args.param}.json"), "w") as f:
         json.dump(record, f)
+    if args.plot:
+        from ..viz.sphere import plot_rotation_frames
+
+        out = os.path.join(args.out_dir, f"torch_lock_sphere_{args.param}.png")
+        plot_rotation_frames(rots, out_path=out,
+                             title=f"lock suite final frames ({args.param})")
+        print(f"wrote {out}")
     return record
 
 
@@ -178,7 +186,9 @@ def parse_args(argv=None):
                    help="enable torch.autograd.set_detect_anomaly")
     p.add_argument("--test", action="store_true")
     p.add_argument("--eval-batch", dest="eval_batch", type=int, default=512)
-    p.add_argument("--plot", action="store_true", help="not ported yet (ROADMAP.md A.7)")
+    p.add_argument("--plot", action="store_true",
+                   help="with --test: the final frames on the sphere, "
+                        "<out-dir>/torch_lock_sphere_<param>.png (needs matplotlib)")
     p.add_argument("--out-dir", dest="out_dir", type=str, default="torch_results",
                    help="where --test writes torch_lock_samples_<param>.npy and "
                         "torch_lock_<param>.json")
@@ -191,8 +201,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.plot:
-        raise SystemExit("--plot is not ported yet: ROADMAP.md A.7 (viz/)")
     with torch.autograd.set_detect_anomaly(args.debug_nans):
         return test(args) if args.test else train(args)
 

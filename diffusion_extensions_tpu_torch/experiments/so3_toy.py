@@ -16,7 +16,8 @@ the card).  Checkpoints go to the directory ``--ckpt`` (default
 exact-transport probability-flow integrator, ``method="flow"``), prints the
 percentiles of the angle to the nearest mode and writes them, with the
 seconds and model evaluations, to ``--out-dir`` (default
-``torch_results/``) as ``torch_so3_toy_{sampler}.json``.  Its weights are
+``torch_results/``) as ``torch_so3_toy_{sampler}.json``; ``--plot`` traces
+the ancestral chain's Euler angles into a figure there.  Its weights are
 the newest checkpoint of ``--ckpt`` (or a bare ``torch.save`` state dict of
 RotPredict); without either the seeded init is evaluated.  Runs on the card
 unless ``--device`` says otherwise.
@@ -36,6 +37,7 @@ from ..data.synthetic import sample_two_mode_batch, two_mode_rotations
 from ..models.rot_predict import RotPredict
 from ..ops import igso3_cuda
 from ..ops.metrics import rmat_dist
+from ..ops.so3 import rmat_to_euler
 from ..parallel.dp import make_dp_train_step
 from ..processes.so3 import SO3Diffusion
 from ..train.loop import MetricLogger, Throughput
@@ -127,7 +129,10 @@ def test(args) -> dict:
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    if args.sampler == "ddim":
+    traj = None
+    if args.plot:
+        samples, traj = process.p_sample_loop(model, gen, shape, return_trajectory=True)
+    elif args.sampler == "ddim":
         samples = process.ddim_sample_loop(model, gen, shape, num_steps=args.sampler_steps)
     elif args.sampler == "pf":
         samples = process.pf_sample_loop(model, gen, shape, num_steps=args.sampler_steps,
@@ -152,7 +157,40 @@ def test(args) -> dict:
     os.makedirs(args.out_dir, exist_ok=True)
     with open(os.path.join(args.out_dir, f"torch_so3_toy_{args.sampler}.json"), "w") as f:
         json.dump(record, f)
+    if traj is not None:
+        plot_traces(traj, args)
     return record
+
+
+def plot_traces(traj: torch.Tensor, args, max_chains: int = 64) -> str:
+    """Euler-angle traces of the first ``max_chains`` chains over the
+    reverse process (the reference's convergence figure), written to
+    ``--plot`` or ``--out-dir``."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from ..viz.colors import BLUE, GREEN, ORANGE
+    from ..viz.mpl import setup_pi_axis
+
+    t_axis = np.arange(traj.shape[0])[::-1]
+    series = [s.cpu().numpy() for s in rmat_to_euler(traj[:, :max_chains])]
+    fig, axlist = plt.subplots(nrows=3, ncols=1, sharex=True)
+    for ax, values, c in zip(axlist, series, (BLUE, ORANGE, GREEN)):
+        ax.plot(t_axis, values, alpha=0.2, c=c, lw=0.7)
+        setup_pi_axis(ax)
+    axlist[2].axhline(np.pi / 2, color="grey", ls="-", lw=0.5)
+    axlist[2].axhline(-np.pi / 2, color="grey", ls="-", lw=0.5)
+    axlist[2].set_xlabel("Reverse process steps")
+    axlist[1].set_ylabel("Angle")
+    out = (args.plot if isinstance(args.plot, str)
+           else os.path.join(args.out_dir, "torch_so3_toy_traces.png"))
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    fig.savefig(out, dpi=150, bbox_inches="tight")
+    plt.close(fig)
+    print(f"wrote {out}")
+    return out
 
 
 def parse_args(argv=None):
@@ -182,17 +220,19 @@ def parse_args(argv=None):
                    help="model evals for ddim/pf samplers")
     p.add_argument("--eval-batch", dest="eval_batch", type=int, default=512)
     p.add_argument("--plot", nargs="?", const=True, default=False,
-                   help="not ported yet (ROADMAP.md A.7)")
+                   help="with --test: Euler-angle traces of the ancestral chain (optional "
+                        "path; default <out-dir>/torch_so3_toy_traces.png; needs matplotlib)")
     p.add_argument("--out-dir", dest="out_dir", type=str, default="torch_results",
                    help="where --test writes torch_so3_toy_<sampler>.json")
     p.add_argument("--device", type=str, default=None, help="torch device (default: cuda)")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.plot and args.sampler != "ancestral":
+        p.error("--plot traces the ancestral chain; it takes no other --sampler")
+    return args
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.plot:
-        raise SystemExit("--plot is not ported yet: ROADMAP.md A.7 (viz/)")
     with torch.autograd.set_detect_anomaly(args.debug_nans):
         return test(args) if args.test else train(args)
 

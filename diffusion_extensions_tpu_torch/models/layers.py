@@ -20,6 +20,7 @@ __all__ = [
     "dense",
     "SinusoidalPosEmb",
     "Siren",
+    "ResLayer",
     "ResMLPBlock",
     "PoolRN",
     "PoolPos",
@@ -73,6 +74,17 @@ class Siren(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.post(torch.sin(self.lin(x)))
+
+
+class ResLayer(nn.Module):
+    """x + layer(x), the reference's residual wrapper."""
+
+    def __init__(self, layer: nn.Module):
+        super().__init__()
+        self.layer = layer
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.layer(x)
 
 
 class ResMLPBlock(nn.Module):

@@ -9,7 +9,11 @@
   numpy copies of the host-side table builders (float64 series, float32
   trapezoid CDF, rational-cubic quantile table).
 * ``IGSO3Table``: per-noise-level CDF and quantile tables, built once;
-  sampling is two point gathers and a lerp.
+  sampling is two point gathers and a lerp (``sample_angles_exact``: the
+  reference's bracketing of the full CDF row).
+* ``IsotropicGaussianSO3`` and ``IGSO3xR3``: the reference's distribution
+  classes, IGSO(3) about a mean rotation and its product with a Gaussian
+  shift; their ``log_prob`` runs the fused kernel.
 * ``Bingham``: the Bingham experiment's target, a projected Gaussian on the
   quaternion 3-sphere.
 
@@ -28,6 +32,7 @@ import torch
 
 from .. import resolve_device
 from .igso3_cuda import igso3_logpdf_score
+from .se3 import AffineT
 from .so3 import exp_skewvec, rmat_to_aa, rmul, rotation_angle
 
 __all__ = [
@@ -36,12 +41,14 @@ __all__ = [
     "igso3_density",
     "igso3_score_angle",
     "igso3_score_vec",
+    "igso3_log_prob_haar",
     "cdf_locs",
     "build_cdf_np",
     "build_cdf",
     "build_inv_cdf_np",
     "IGSO3Table",
     "IsotropicGaussianSO3",
+    "IGSO3xR3",
     "Bingham",
 ]
 
@@ -181,6 +188,14 @@ def igso3_score_vec(r_mat: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     return axis * score[..., None]
 
 
+def igso3_log_prob_haar(t: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """log of the density over SO(3) with respect to the angle: the
+    log-density plus the log of the (1 - cos t) / pi Haar factor that the
+    reference's sampler uses and its ``log_prob`` leaves out."""
+    return igso3_log_density(t, sigma) + torch.log(
+        torch.clamp((1.0 - torch.cos(t)) / _PI, min=1e-38))
+
+
 # ---------------------------------------------------------------------------
 # Inverse-CDF tables
 # ---------------------------------------------------------------------------
@@ -241,6 +256,16 @@ def _angles_from_unif(unif, trap_locs, cdf):
     angle_start = trap_locs[idx_0]
     angle_end = trap_locs[idx_1]
     return angle_start + weight * (angle_end - angle_start)
+
+
+def _inverse_cdf_angles(generator, trap_locs, cdf, unif=None):
+    """One angle per CDF row (..., 999) by the reference's inverse
+    transform, from ``unif`` (uniform on [0, 1), of ``cdf.shape[:-1]``) or
+    uniforms drawn from ``generator``."""
+    if unif is None:
+        unif = torch.rand(cdf.shape[:-1], generator=generator, device=cdf.device,
+                          dtype=cdf.dtype)
+    return _angles_from_unif(unif, trap_locs, cdf)
 
 
 def _quantile_knots(q: int) -> np.ndarray:
@@ -347,6 +372,12 @@ class IGSO3Table:
         IGSO3(eps[idx_dst]): theta' = Q_dst(F_src(theta))."""
         return self.quantile_angles(self.cdf_angles(theta, idx_src), idx_dst)
 
+    def sample_angles_exact(self, generator, idx: torch.Tensor, unif=None) -> torch.Tensor:
+        """Angles ~ IGSO3(eps[idx]) by the reference's bracketing of the
+        full CDF row (a 999-wide gather a sample), from ``unif`` or
+        uniforms drawn from ``generator``; the quantile table's reference."""
+        return _inverse_cdf_angles(generator, self.trap_locs, self.cdf[idx], unif)
+
     def sample(self, generator, idx: torch.Tensor) -> torch.Tensor:
         """Rotations ~ IGSO3(eps[idx]), shape (*idx.shape, 3, 3)."""
         angles = self.sample_angles(generator, idx)
@@ -377,8 +408,7 @@ class IsotropicGaussianSO3:
         """mean @ exp(uniform axis * inverse-CDF angle)."""
         batch = (*sample_shape, *self.eps.shape)
         rows = self.cdf.expand(*batch, self.cdf.shape[-1])
-        unif = torch.rand(batch, generator=generator, device=self.eps.device)
-        angles = _angles_from_unif(unif, self.trap_locs, rows)
+        angles = _inverse_cdf_angles(generator, self.trap_locs, rows)
         axes = _random_axes(generator, batch, self.eps.device)
         return rmul(self.mean, exp_skewvec(axes * angles[..., None]))
 
@@ -387,6 +417,44 @@ class IsotropicGaussianSO3:
         angle = rotation_angle(rotations)
         logf, _ = igso3_logpdf_score(angle, self.eps)
         return logf
+
+
+@dataclass(frozen=True)
+class IGSO3xR3:
+    """SO(3) x R^3 product: IGSO3(eps) about ``mean.rot`` on the rotation,
+    Normal(``mean.shift``, eps * ``shift_scale``) on the shift."""
+
+    igso3: IsotropicGaussianSO3
+    mean_shift: torch.Tensor
+    shift_scale: float = 1.0
+
+    @classmethod
+    def create(cls, eps, mean: AffineT | None = None, shift_scale: float = 1.0,
+               device=None) -> "IGSO3xR3":
+        device = resolve_device(device)
+        eps = torch.as_tensor(eps, dtype=torch.float32, device=device)
+        if mean is None:
+            mean = AffineT(torch.eye(3, dtype=eps.dtype, device=device),
+                           torch.zeros((*eps.shape, 3), dtype=eps.dtype, device=device))
+        return cls(igso3=IsotropicGaussianSO3.create(eps, mean.rot, device=device),
+                   mean_shift=mean.shift, shift_scale=shift_scale)
+
+    def sample(self, generator, sample_shape=()) -> AffineT:
+        """The rotation's draws, then the shift's, from ``generator``."""
+        rot = self.igso3.sample(generator, sample_shape)
+        eps = self.igso3.eps
+        noise = torch.randn((*sample_shape, *eps.shape, 3), generator=generator,
+                            device=eps.device, dtype=eps.dtype)
+        return AffineT(rot, self.mean_shift + eps[..., None] * self.shift_scale * noise)
+
+    def log_prob(self, value: AffineT) -> torch.Tensor:
+        """IGSO(3) log f of the rotation (no Haar factor, through the fused
+        kernel) plus the shift's Gaussian log-density."""
+        rot_lp = self.igso3.log_prob(value.rot)
+        scale = self.igso3.eps[..., None] * self.shift_scale
+        z = (value.shift - self.mean_shift) / scale
+        shift_lp = torch.sum(-0.5 * z * z - torch.log(scale) - 0.5 * math.log(2 * _PI), dim=-1)
+        return rot_lp + shift_lp
 
 
 @dataclass(frozen=True)

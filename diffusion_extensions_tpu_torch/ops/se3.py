@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from .so3 import rmul, so3_lerp, so3_scale
+from .so3 import euler_to_rmat, rmul, so3_lerp, so3_scale
 
 __all__ = ["AffineT", "AffineGrad", "ProtData", "se3_lerp", "se3_scale"]
 
@@ -45,6 +45,11 @@ class AffineT:
         rot = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3)
         shift = torch.zeros((*batch_shape, 3), dtype=dtype, device=device)
         return cls(rot, shift)
+
+    @classmethod
+    def from_euler(cls, euls: torch.Tensor, shift: torch.Tensor) -> "AffineT":
+        """Rotation from XYZ Euler angles ``euls`` (..., 3), and ``shift``."""
+        return cls(euler_to_rmat(euls[..., 0], euls[..., 1], euls[..., 2]), shift)
 
     def compose(self, other: "AffineT") -> "AffineT":
         """(R1, s1) . (R2, s2) = (R1 R2, R1 s2 + s1)."""

@@ -20,6 +20,7 @@ __all__ = [
     "aa_to_rmat",
     "rmat_to_aa",
     "so3_lerp",
+    "so3_bezier",
     "so3_scale",
     "rmat2six",
     "six2rmat",
@@ -28,6 +29,7 @@ __all__ = [
     "rmat_to_euler",
     "orthogonalise",
     "haar_rotations",
+    "haar_rotations_proper",
 ]
 
 _EPS = 1e-8
@@ -157,6 +159,14 @@ def so3_lerp(rot_a: torch.Tensor, rot_b: torch.Tensor, weight) -> torch.Tensor:
     return rmul(rot_a, aa_to_rmat(axis, i_angle[..., 0]))
 
 
+def so3_bezier(rots, weight) -> torch.Tensor:
+    """Recursive de Casteljau on SO(3) over the control rotations ``rots``
+    (a sequence, at least two), ``weight`` as ``so3_lerp`` takes it."""
+    if len(rots) == 2:
+        return so3_lerp(rots[0], rots[1], weight)
+    return so3_lerp(so3_bezier(rots[:-1], weight), so3_bezier(rots[1:], weight), weight)
+
+
 def so3_scale(rmat: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     """Fractional rotation power exp(s * log R)."""
     return exp_skewvec(log_rmat_vec(rmat) * scalars[..., None])
@@ -267,3 +277,19 @@ def haar_rotations(
     )
     q, _ = torch.linalg.qr(g)
     return q
+
+
+def haar_rotations_proper(
+    generator: torch.Generator | None, shape=(), device=None
+) -> torch.Tensor:
+    """Haar-uniform rotations with det = +1: QR of an iid normal matrix,
+    Q's columns signed by R's diagonal, then the first column by det Q."""
+    if device is None and generator is not None:
+        device = generator.device
+    g = torch.randn(
+        (*shape, 3, 3), generator=generator, device=device, dtype=torch.float32
+    )
+    q, r = torch.linalg.qr(g)
+    q = q * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))[..., None, :]
+    det = torch.linalg.det(q)
+    return torch.cat((q[..., :, :1] * det[..., None, None], q[..., :, 1:]), dim=-1)

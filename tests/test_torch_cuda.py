@@ -406,3 +406,71 @@ def test_to_device_packs_one_pinned_copy(cuda):
     for got, want in ((dev.receptor.positions, b.receptor.positions),
                       (dev.ligand.angles, b.ligand.angles), (dev.ligand_mask, b.ligand_mask)):
         assert np.array_equal(got.cpu().numpy(), want)
+
+
+# -- the jigsaw and diagnostics slice (the gates of chip_smoke.py's phases) --
+def test_jigsaw_images_and_forward_on_the_card_match_the_cpu(cuda):
+    """Every pixel of the rendered batch equal; the CoordConv forward within
+    1e-4 of the output's scale."""
+    from diffusion_extensions_tpu_torch.data.jigsaw import JigsawPuzzle
+    from diffusion_extensions_tpu_torch.models.coordconv import CoordConv
+
+    jp = JigsawPuzzle(seed=3)
+    x = torch.randn(32, 2, generator=torch.Generator().manual_seed(0)) * 1.5
+    imgs = jp(x)
+    assert torch.equal(jp(x.to(cuda)).cpu(), imgs)
+    torch.manual_seed(0)
+    model = CoordConv().eval()
+    t = torch.arange(4) * 250
+    with torch.no_grad():
+        ref = model(imgs[:4], t)
+        got = model.to(cuda)(imgs[:4].to(cuda), t.to(cuda)).cpu()
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def test_jigsaw_driver_resumes_to_the_bit_on_the_card(tmp_path, cuda):
+    """4 steps against 2 + save + restore + 2 at batch 8 through the jigsaw driver,
+    whose convolutions take cuDNN's deterministic algorithms."""
+    from diffusion_extensions_tpu_torch.experiments import jigsaw
+
+    base = ["--batch", "8", "--timesteps", "100", "--print-every", "100"]
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    jigsaw.main(base + ["--steps", "4", "--ckpt", a])
+    jigsaw.main(base + ["--steps", "2", "--ckpt", b])
+    jigsaw.main(base + ["--steps", "4", "--ckpt", b, "--resume"])
+    ra, rb = (torch.load(f"{d}/step_00000004.pt", weights_only=True) for d in (a, b))
+    for k, v in ra["params"].items():
+        assert torch.equal(v, rb["params"][k]), k
+    assert not torch.backends.cudnn.deterministic  # jigsaw.train restores the flag
+
+
+def test_igso3xr3_log_prob_on_the_card_launches_kernel_1(cuda):
+    """50,000 poses: one launch, log_prob inside the kernel's log f gates
+    against the CPU's."""
+    from diffusion_extensions_tpu_torch.ops.igso3 import IGSO3xR3
+    from diffusion_extensions_tpu_torch.ops.se3 import AffineT
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    eps = torch.rand(50_000, generator=gen, device=cuda) + 0.05
+    dist = IGSO3xR3.create(eps, shift_scale=75.0, device=cuda)
+    value = dist.sample(gen)
+    before = igso3_cuda.launches
+    lp = dist.log_prob(value)
+    torch.cuda.synchronize()
+    assert igso3_cuda.launches == before + 1
+    cpu = IGSO3xR3.create(eps.cpu(), shift_scale=75.0, device="cpu")
+    ref = cpu.log_prob(AffineT(value.rot.cpu(), value.shift.cpu()))
+    torch.testing.assert_close(lp.cpu(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_diagnostics_compute_on_the_card(tmp_path, cuda):
+    """se3-path (14 poses, 50 steps) on SO(3) with finite shifts; grad_check
+    at 800 iterations and lr 0.05 halves its loss."""
+    from diffusion_extensions_tpu_torch.experiments import diagnostics, grad_check
+
+    rots, shifts = diagnostics.main(["se3-path", "--steps", "50", "--out-dir", str(tmp_path)])
+    r = torch.from_numpy(rots)
+    assert rots.shape == (51, 14, 3, 3) and np.isfinite(shifts).all()
+    assert float((r.transpose(-1, -2) @ r - torch.eye(3)).abs().max()) < 1e-4
+    res = grad_check.main(["--iters", "800", "--lr", "0.05"])
+    assert res["loss_last"] < 0.5 * res["loss_first"]

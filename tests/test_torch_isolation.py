@@ -1,7 +1,9 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package.
+"""The port and chip_smoke.py import neither JAX nor the JAX package, nor
+matplotlib (the card's machine has none; the figures import it where they
+draw).
 
 A subprocess installs an import hook that refuses ``jax`` (and flax, optax,
-orbax) and ``diffusion_extensions_tpu`` by exact name or by the
+orbax), matplotlib and ``diffusion_extensions_tpu`` by exact name or by the
 ``diffusion_extensions_tpu.`` prefix -- the port's own name,
 ``diffusion_extensions_tpu_torch``, shares the string prefix and must pass.
 It then imports every module of the port and ``chip_smoke.py``.
@@ -15,7 +17,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SCRIPT = r"""
 import importlib, importlib.abc, importlib.util, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "diffusion_extensions_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "matplotlib", "diffusion_extensions_tpu")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
@@ -48,10 +50,10 @@ def test_port_and_chip_smoke_import_no_jax():
         timeout=300,
     )
     assert res.returncode == 0, res.stderr
-    # package + ops(8) + processes(6) + models(6) + data(5) + experiments(6) + convert
-    # + train(4) + parallel(2)
+    # package + ops(8) + processes(6) + models(7) + data(6) + experiments(9) + convert
+    # + train(4) + parallel(2) + viz(5)
     lines = res.stdout.strip().splitlines()
-    assert int(lines[-1]) >= 39
+    assert int(lines[-1]) >= 49
     imported = set(lines[-2].split())
     pkg = "diffusion_extensions_tpu_torch"
     assert {f"{pkg}.train.optim", f"{pkg}.train.state", f"{pkg}.train.loop",
@@ -59,4 +61,7 @@ def test_port_and_chip_smoke_import_no_jax():
             f"{pkg}.models.protnet", f"{pkg}.processes.se3",
             f"{pkg}.experiments.protein", f"{pkg}.processes.r3", f"{pkg}.processes.euler",
             f"{pkg}.experiments.so3_toy", f"{pkg}.experiments.lock",
-            f"{pkg}.models.rot_predict", f"{pkg}.data.synthetic"} <= imported
+            f"{pkg}.models.rot_predict", f"{pkg}.data.synthetic", f"{pkg}.models.coordconv",
+            f"{pkg}.data.jigsaw", f"{pkg}.experiments.jigsaw", f"{pkg}.experiments.diagnostics",
+            f"{pkg}.experiments.grad_check", f"{pkg}.viz", f"{pkg}.viz.colors", f"{pkg}.viz.mpl",
+            f"{pkg}.viz.obj3d", f"{pkg}.viz.sphere"} <= imported

@@ -253,9 +253,16 @@ def test_driver_end_to_end(small, tmp_path, capsys, param):
     assert tree_hashes("results", "images") == before
 
 
-def test_plot_is_not_ported_yet(small):
-    with pytest.raises(SystemExit, match="not ported yet: ROADMAP.md A.7"):
-        lock.main(small + ["--test", "--plot"])
+def test_plot_is_not_ported_yet(small, tmp_path):
+    """``--plot`` is ported now: ``--test --plot`` draws the final frames on
+    the sphere into ``<out-dir>/torch_lock_sphere_<param>.png``, beside the
+    samples and the record."""
+    out = str(tmp_path / "out")
+    rec = lock.main(small + ["--test", "--plot", "--eval-batch", "8", "--out-dir", out])
+    assert rec["count"] == 8
+    assert sorted(os.listdir(out)) == ["torch_lock_samples_so3.npy", "torch_lock_so3.json",
+                                       "torch_lock_sphere_so3.png"]
+    assert os.path.getsize(os.path.join(out, "torch_lock_sphere_so3.png")) > 1000
 
 
 JAX_FLAGS = ["param", "batch", "lr", "steps", "timesteps", "seed", "ckpt", "ckpt_every",

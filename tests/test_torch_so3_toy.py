@@ -145,9 +145,21 @@ def test_driver_end_to_end(small, tmp_path, capsys):
     assert tree_hashes("results", "images") == before
 
 
-def test_plot_is_not_ported_yet(small):
-    with pytest.raises(SystemExit, match="not ported yet: ROADMAP.md A.7"):
-        so3_toy.main(small + ["--test", "--plot"])
+def test_plot_is_not_ported_yet(small, tmp_path):
+    """``--plot`` is ported now: ``--test --plot`` traces the ancestral
+    chain's Euler angles into ``<out-dir>/torch_so3_toy_traces.png`` (or the
+    path it is given), beside the record, and takes no other sampler."""
+    out = str(tmp_path / "out")
+    rec = so3_toy.main(small + ["--test", "--plot", "--eval-batch", "8", "--out-dir", out])
+    assert rec["sampler"] == "ancestral" and rec["model_evals"] == 20
+    assert sorted(os.listdir(out)) == ["torch_so3_toy_ancestral.json",
+                                       "torch_so3_toy_traces.png"]
+    assert os.path.getsize(os.path.join(out, "torch_so3_toy_traces.png")) > 1000
+    path = str(tmp_path / "fig" / "t.png")
+    so3_toy.main(small + ["--test", "--plot", path, "--eval-batch", "8", "--out-dir", out])
+    assert os.path.getsize(path) > 1000
+    with pytest.raises(SystemExit):
+        so3_toy.main(small + ["--test", "--plot", "--sampler", "ddim"])
 
 
 def test_the_driver_defaults_to_the_card(small):
