@@ -6,7 +6,7 @@
 Builds every CUDA kernel of the port from the sources in this checkout (one
 nvcc per source, all started together; prints what ptxas says of each and,
 where cuobjdump is there, the SASS instruction counts), holds each against
-its plain PyTorch version on the card, then drives twelve paths at full size,
+its plain PyTorch version on the card, then drives fourteen paths at full size,
 each with the kernels' launch counts set to 0 just before it and read just
 after:
 
@@ -70,12 +70,25 @@ after:
   1000 forward steps, each an IGSO3xR3 draw, gated on SO(3) and finite
   shifts), ``grad_check`` at its defaults (2000 Adam steps, the loss must
   halve), and ``IGSO3xR3.log_prob`` over 50,000 poses (kernel 1) against
-  the CPU's; no figure (the card's machine has no matplotlib).
+  the CPU's; no figure (the card's machine has no matplotlib);
+* the Switch-MoE aircraft arm (bench.py's moe_train_e4: the aircraft width
+  with 4 experts, scatter dispatch, T = 8,192 tokens a layer, C = 2,560)
+  through ``aircraft.main``: 208 replayed ``--bf16 --steps-per-call 8``
+  steps (ms, steps/s, peak memory, falling loss, expert fractions, the aux
+  on the trained weights), the one-hot dispatch timed beside the scatter
+  one in turns, replayed and resumed steps against eager ones to the bit,
+  then ``--test`` over 32 shapes (1000-step chains, gated on SO(3));
+* the multi-process code at world size 1 over NCCL (a group made in this
+  process; the card's machine has one GPU): 16 replayed K = 8 steps through
+  the data-parallel all-reduce against the same steps without a group, to
+  the bit, the all-reduce issued inside the capture; then ``--fsdp``
+  (FSDP2) for 20 eager steps against the plain eager steps.
 
 Small runs hold the card against the CPU: sampling (aircraft Heun, Bingham
 DDIM), training, the protein slice, and the Euler arms (an aircraft Euler
 chain, protein Euler steps, five lock-arm losses per arm), and the jigsaw
-slice (images, forward, loss, a 20-step chain).
+slice (images, forward, loss, a 20-step chain), and the MoE PlaneNet
+(forward, loss with the aux, routing; both dispatches).
 Every phase prints JSON lines, and the seconds each phase took; any failure
 raises and exits non-zero.  The last lines are the kernels' summary, the
 card's name and power limit as nvidia-smi reports them, and
@@ -241,6 +254,13 @@ JIGSAW = dict(size=128, batch=256, timesteps=1000, warmup=10, timed=50, fall_ste
 # the diagnostics: se3-path and grad_check at their defaults, IGSO3xR3.log_prob
 # over 50,000 poses on the card against the CPU
 DIAG = dict(se3_samples=14, se3_steps=1000, grad_iters=2000, log_prob_n=50_000)
+# the Switch-MoE aircraft arm (bench.py's moe_train_e4): replayed --bf16 K = 8
+# steps, the logging interval (each row runs the probe and reads the expert
+# fractions)
+MOE = dict(experts=4, steps=208, print_every=8)
+# world size 1 over NCCL: replayed K = 8 steps through the all-reduce, eager
+# --fsdp steps
+DP_WORLD1 = dict(steps=16, fsdp_steps=20)
 
 
 def emit(phase: str, **fields) -> None:
@@ -869,13 +889,14 @@ def run_captured(fn, argv):
     return out, buf.getvalue()
 
 
-def exact_resume_check(tmp: str) -> dict:
+def exact_resume_check(tmp: str, argv=("--so3",)) -> dict:
     """At full width, from the same init and the same batches: 2N eager
     steps against N + save + restore + N, against 2N steps in calls of 5
     (one CUDA graph replayed a sub-step), and against N such steps + save +
-    restore + N eager ones.  Returns the largest weight difference of each."""
+    restore + N eager ones.  ``argv``: the driver's flags of the model.
+    Returns the largest weight difference of each."""
     n = TRAIN["exact_n"]
-    args = aircraft.parse_args(["--so3"])
+    args = aircraft.parse_args(list(argv))
     device = torch.device("cuda")
     loader = iter(BatchLoader(synthetic_planes(128, seed=0), PATH["batch"],
                               samples=PATH["samples"], seed=0, device=device))
@@ -1847,6 +1868,266 @@ def phase_diagnostics(tmp: str) -> dict:
             "gaussian_kernel_sum": mmd_cuda.launches}
 
 
+def moe_routes(model: PlaneNet) -> list:
+    """Wrap each MoE layer's router so that every call appends its
+    (probs, expert) to the returned list."""
+    seen = []
+    for layer in model.encoder.layers:
+        route = layer.moe.route
+
+        def recorded(tokens, *args, route=route, **kwargs):
+            out = route(tokens, *args, **kwargs)
+            seen.append((out[0].detach().float().cpu(), out[2].cpu()))
+            return out
+
+        layer.moe.route = recorded
+    return seen
+
+
+def small_moe_agreement() -> None:
+    """The MoE PlaneNet on the card against the CPU: dim 64, 4 heads, 2
+    layers with 4 experts, B 4 x N 32 (T = 128 tokens a layer, C = 40),
+    the same init, inputs, t and noise.  Forward within 1e-5 of its scale,
+    the aircraft loss with the aux within rtol 1e-4, both dispatches, and
+    the same expert for every token; tokens whose two top probabilities
+    lie within 1e-6 of each other are counted, not gated."""
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((4, 32, 3)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 100, 4))
+    torch.manual_seed(21)
+    init = PlaneNet(dim=64, heads=4, layers=2, moe_experts=4).state_dict()
+    proc_cpu = ProjectedSO3Diffusion(100, device="cpu")
+    noise = proc_cpu.sample_noise(torch.Generator().manual_seed(22), t)
+    out = {}
+    for dispatch in ("scatter", "onehot"):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            model = PlaneNet(dim=64, heads=4, layers=2, moe_experts=4, moe_dispatch=dispatch)
+            model.load_state_dict(init)
+            model = model.to(dev)
+            routes = moe_routes(model)
+            proc = proc_cpu if dev == "cpu" else ProjectedSO3Diffusion(100, device=dev)
+            with torch.no_grad():
+                fwd = model(x.to(dev), t.to(dev)).cpu()
+                loss = aircraft.make_loss_fn(model, proc)(
+                    None, (x.to(dev), t.to(dev), noise.to(dev)))
+            res[dev] = (fwd, float(loss), routes[: len(model.encoder.layers)])
+        fwd_err = float((res["cpu"][0] - res["cuda"][0]).abs().max())
+        scale = float(res["cpu"][0].abs().max())
+        loss_rel = abs(res["cpu"][1] - res["cuda"][1]) / abs(res["cpu"][1])
+        differ, near_ties = 0, 0
+        for (probs, e_cpu), (_, e_cuda) in zip(res["cpu"][2], res["cuda"][2]):
+            top2 = probs.topk(2, dim=-1).values
+            tie = (top2[:, 0] - top2[:, 1]) < 1e-6
+            near_ties += int(tie.sum())
+            differ += int(((e_cpu != e_cuda) & ~tie).sum())
+        out[dispatch] = {"forward_err": fwd_err, "forward_scale": scale, "loss_cpu": res["cpu"][1],
+                         "loss_cuda": res["cuda"][1], "loss_rel_err": loss_rel,
+                         "routing_differs": differ, "near_ties": near_ties}
+        if not (fwd_err <= 1e-5 * scale and loss_rel < 1e-4 and differ == 0):
+            raise AssertionError(f"MoE {dispatch}: card and CPU disagree: {out[dispatch]}")
+    emit("small_agreement", run="moe", forward_tol=1e-5, loss_rtol=1e-4, **out)
+
+
+def moe_eval_loss(model) -> float:
+    """The MoE arm's loss (with its aux) on a fixed evaluation set: 128
+    validation clouds in batches of 32, t and noise drawn once from a seed;
+    what the falling-loss gate compares before and after training (a
+    logged row is one batch's loss, too noisy to compare over 208 steps)."""
+    device = torch.device("cuda")
+    clouds = torch.from_numpy(subsample_points(synthetic_planes(128, seed=1), PATH["samples"],
+                                               31)).to(device)
+    process = ProjectedSO3Diffusion(PATH["timesteps"], device=device)
+    gen = torch.Generator(device=device).manual_seed(9)
+    loss_fn = aircraft.make_loss_fn(model, process)
+    total = 0.0
+    with torch.no_grad():
+        for i in range(0, len(clouds), PATH["batch"]):
+            t, noise = aircraft.draw_t_noise(process, gen, PATH["batch"])
+            total += float(loss_fn(None, (clouds[i:i + PATH["batch"]], t, noise)))
+    return total * PATH["batch"] / len(clouds)
+
+
+def phase_moe_aircraft(tmp: str) -> dict:
+    """The Switch-MoE aircraft arm at full width through ``aircraft.main``
+    (bench.py's moe_train_e4: PlaneNet d512 / h4 / l4 with 4 experts,
+    scatter dispatch, batch 32 x 256 points, T = 8,192 tokens a layer,
+    C = 2,560): MOE["steps"] replayed ``--bf16 --steps-per-call 8`` steps
+    (ms, steps/s, peak memory, the loss on a fixed evaluation set falling
+    from the init, expert fractions, the aux on the trained weights), the
+    one-hot dispatch timed beside the scatter one, replayed and resumed
+    steps against eager ones to the bit, then ``--test`` over 32 shapes;
+    returns each kernel's launches."""
+    igso3_cuda.launches = mmd_cuda.launches = 0
+    base = ["--so3", "--dim", str(PATH["dim"]), "--heads", str(PATH["heads"]), "--layers",
+            str(PATH["layers"]), "--batch", str(PATH["batch"]), "--samples", str(PATH["samples"]),
+            "--timesteps", str(PATH["timesteps"]), "--moe-experts", str(MOE["experts"])]
+    arm = base + ["--bf16", "--steps-per-call", "8"]
+    init, _ = aircraft.build(aircraft.parse_args(arm), torch.device("cuda"))
+    loss_init = moe_eval_loss(init)
+    ckpt, log = os.path.join(tmp, "moe"), os.path.join(tmp, "moe.jsonl")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _ = run_captured(aircraft.main, arm + [
+        "--steps", str(MOE["steps"]), "--print-every", str(MOE["print_every"]), "--ckpt", ckpt,
+        "--log", log])
+    sync()
+    seconds = time.perf_counter() - t0
+    rows = read_jsonl(log)
+    sps = rows[-1]["steps_per_sec"]
+    first = float(np.mean([r["loss"] for r in rows[:5]]))
+    last = float(np.mean([r["loss"] for r in rows[-5:]]))
+    model = state.model
+    loss_trained = moe_eval_loss(model)
+    probe = torch.from_numpy(subsample_points(synthetic_planes(128, seed=1)[: PATH["batch"]],
+                                              PATH["samples"], 29)).cuda()
+    with torch.no_grad():
+        model(probe, torch.full((PATH["batch"],), 500, device="cuda"))
+        aux = float(model.moe_aux())
+    emit("moe_aircraft", variant="bf16_k8_scatter", steps=MOE["steps"], ms_per_step=1e3 / sps,
+         steps_per_sec=sps, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         loss_first_5_rows=first, loss_last_5_rows=last, eval_loss_init=loss_init,
+         eval_loss_trained=loss_trained, test_loss=rows[-1]["test_loss"],
+         aux_on_trained=aux, expert_fracs=rows[-1]["expert_fracs"],
+         expert_frac_min=rows[-1]["expert_frac_min"], expert_frac_max=rows[-1]["expert_frac_max"],
+         tokens_per_layer=PATH["batch"] * PATH["samples"],
+         capacity=model.encoder.layers[0].moe.capacity(PATH["batch"] * PATH["samples"]),
+         seconds=seconds)
+    if state.step != MOE["steps"] or not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"moe_aircraft: step {state.step}, rows {rows}")
+    if not (loss_trained < loss_init and np.isfinite(aux)):
+        raise AssertionError(f"moe_aircraft: eval loss {loss_init} -> {loss_trained}, aux {aux}")
+
+    timing = {}
+    steps = TRAIN["warmup"] + TRAIN["timed"]
+    for dispatch in ("scatter", "onehot", "scatter", "onehot"):
+        log = os.path.join(tmp, f"moe_{dispatch}_{len(timing)}.jsonl")
+        torch.cuda.reset_peak_memory_stats()
+        aircraft.main(arm + ["--moe-dispatch", dispatch, "--steps", str(steps), "--print-every",
+                             str(TRAIN["print_every"]), "--ckpt", os.path.join(tmp, "moe_t"),
+                             "--log", log])
+        timing.setdefault(dispatch, []).append(
+            (1e3 / read_jsonl(log)[-1]["steps_per_sec"], torch.cuda.max_memory_allocated()))
+    ms = {d: [m for m, _ in v] for d, v in timing.items()}
+    emit("moe_aircraft", run="dispatch_timing", steps=steps, timed_steps=TRAIN["timed"],
+         scatter_ms=ms["scatter"], onehot_ms=ms["onehot"],
+         onehot_over_scatter=float(np.mean(ms["onehot"]) / np.mean(ms["scatter"])),
+         scatter_peak_bytes=[b for _, b in timing["scatter"]],
+         onehot_peak_bytes=[b for _, b in timing["onehot"]])
+
+    diffs = exact_resume_check(tmp, ["--so3", "--bf16", "--moe-experts", str(MOE["experts"])])
+    emit("moe_aircraft", run="exact_resume", n=TRAIN["exact_n"], max_abs_diff=diffs,
+         bit_identical=all(d == 0.0 for d in diffs.values()))
+    if any(d != 0.0 for d in diffs.values()):
+        raise AssertionError(f"moe_aircraft: weights differ from 2N eager steps: {diffs}")
+
+    sampled = []
+    sample_rotations, per_shape = aircraft.sample_rotations, aircraft.SAMPLES_PER_SHAPE
+
+    def recorded(*a, **kw):
+        rots = sample_rotations(*a, **kw)
+        sampled.append(rots)
+        return rots
+
+    aircraft.sample_rotations, aircraft.SAMPLES_PER_SHAPE = recorded, 1
+    try:
+        t0 = time.perf_counter()
+        res, out = run_captured(aircraft.main, base + [
+            "--bf16", "--test", "--max-shapes", str(PATH["batch"]), "--ckpt", ckpt])
+        sync()
+        seconds = time.perf_counter() - t0
+    finally:
+        aircraft.sample_rotations, aircraft.SAMPLES_PER_SHAPE = sample_rotations, per_shape
+    errs = check_rotations("moe_aircraft_test", sampled[0])
+    emit("moe_aircraft", run="test_on_checkpoint", seconds=seconds, samples=len(res),
+         steps=PATH["timesteps"], median_angle=float(np.median(res)), **errs)
+    if "no checkpoint found" in out or res.shape != (PATH["batch"],) \
+            or not np.isfinite(res).all():
+        raise AssertionError("moe_aircraft: --test did not evaluate the checkpoint")
+    return {"igso3_logpdf_score": igso3_cuda.launches,
+            "gaussian_kernel_sum": mmd_cuda.launches}
+
+
+def phase_dp_world1(tmp: str) -> dict:
+    """The multi-process code on the card at world size 1 over NCCL (a
+    group made in this process): 16 replayed ``--bf16`` K = 8 aircraft
+    steps at full width through ``make_dp_train_step(group=...)`` (the
+    loss drawing the global batch's noise and taking the rank's slice)
+    against the same steps without a group, to the bit, with the
+    all-reduce issued while the step is captured; then
+    ``--fsdp`` (FSDP2 over the group) for DP_WORLD1["fsdp_steps"] eager
+    fp32 steps through ``aircraft.main`` against the plain eager steps,
+    losses within rtol 1e-5 (both with the numpy loader: the native one's
+    two threads hand out batches in the order they finish).  Returns each
+    kernel's launches."""
+    import torch.distributed as dist
+
+    igso3_cuda.launches = mmd_cuda.launches = 0
+    base = ["--so3", "--dim", str(PATH["dim"]), "--heads", str(PATH["heads"]), "--layers",
+            str(PATH["layers"]), "--batch", str(PATH["batch"]), "--samples", str(PATH["samples"]),
+            "--timesteps", str(PATH["timesteps"])]
+    n = DP_WORLD1["fsdp_steps"]
+    plain_log = os.path.join(tmp, "plain.jsonl")
+    aircraft.main(base + ["--steps", str(n), "--print-every", "1", "--no-native", "--ckpt",
+                          os.path.join(tmp, "plain"), "--log", plain_log])
+    device = torch.device("cuda")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        args = aircraft.parse_args(base + ["--bf16"])
+        loader = iter(BatchLoader(synthetic_planes(128, seed=0), PATH["batch"],
+                                  samples=PATH["samples"], seed=0, device=device))
+        batches = torch.stack([next(loader) for _ in range(DP_WORLD1["steps"])])
+        captured = []
+        all_reduce = dist.all_reduce
+
+        def recorded(*a, **kw):
+            captured.append(torch.cuda.is_current_stream_capturing())
+            return all_reduce(*a, **kw)
+
+        finals = {}
+        for name, group in (("plain", None), ("all_reduce", dist.group.WORLD)):
+            model, process = aircraft.build(args, device)
+            opt = make_optimizer(model.named_parameters(), args.lr)
+            state = TrainState(model, opt, torch.Generator(device=device).manual_seed(5))
+            dist.all_reduce = recorded
+            try:
+                loss_fn = (aircraft.make_loss_fn(model, process) if group is None
+                           else aircraft.make_global_loss_fn(model, process, group))
+                step = make_dp_train_step(loss_fn, model, opt, steps_per_call=8, group=group)
+                losses = []
+                for i in range(0, DP_WORLD1["steps"], 8):
+                    state, m = step(state, batches[i:i + 8])
+                    losses.append(float(m["loss"]))
+            finally:
+                dist.all_reduce = all_reduce
+            finals[name] = ({k: v.clone() for k, v in model.state_dict().items()}, losses)
+        a, b = finals["plain"][0], finals["all_reduce"][0]
+        diff = max(float((a[k] - b[k]).abs().max()) for k in a)
+        emit("dp_world1", run="replayed_all_reduce", steps=DP_WORLD1["steps"], k=8,
+             backend=dist.get_backend(), world_size=dist.get_world_size(),
+             max_abs_diff=diff, bit_identical=diff == 0.0, losses=finals["all_reduce"][1],
+             all_reduce_calls=len(captured), all_reduce_calls_while_capturing=sum(captured))
+        if diff != 0.0 or sum(captured) != 1 or finals["plain"][1] != finals["all_reduce"][1]:
+            raise AssertionError(f"dp_world1: replayed all-reduce step differs ({diff}) or the "
+                                 f"capture held no all-reduce ({captured})")
+
+        fsdp_log = os.path.join(tmp, "fsdp.jsonl")
+        aircraft.main(base + ["--fsdp", "--steps", str(n), "--print-every", "1", "--no-native",
+                              "--ckpt", os.path.join(tmp, "fsdp"), "--log", fsdp_log])
+        plain = [r["loss"] for r in read_jsonl(plain_log)]
+        fsdp = [r["loss"] for r in read_jsonl(fsdp_log)]
+        rel = max(abs(p - f) / abs(p) for p, f in zip(plain, fsdp))
+        emit("dp_world1", run="fsdp", steps=n, loss_plain=plain, loss_fsdp=fsdp,
+             max_rel_err=rel, rtol=1e-5)
+        if len(fsdp) != n or not rel < 1e-5:
+            raise AssertionError(f"dp_world1: --fsdp losses part from the plain ones by {rel}")
+    finally:
+        dist.destroy_process_group()
+    return {"igso3_logpdf_score": igso3_cuda.launches,
+            "gaussian_kernel_sum": mmd_cuda.launches}
+
+
 def timed(name: str, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -1887,11 +2168,15 @@ def main() -> None:
         diag = timed("diagnostics", lambda: phase_diagnostics(tmp))
     if diag["igso3_logpdf_score"] == 0:
         raise AssertionError(f"the diagnostics path launched no igso3_logpdf_score: {diag}")
+    timed("small_agreement_moe", small_moe_agreement)
+    with tempfile.TemporaryDirectory() as tmp:
+        moe = timed("moe_aircraft", lambda: phase_moe_aircraft(tmp))
+        dp1 = timed("dp_world1", lambda: phase_dp_world1(tmp))
     by_path = {"aircraft": aircraft_launches, "bingham": bing,
                "aircraft_train": air_train, "bingham_train": bing_train,
                "protein": prot, "protein_train": prot_train, "euler_aircraft": euler_air,
                "euler_protein": euler_prot, "so3_toy": toy, "lock": lock_suite,
-               "jigsaw": jig, "diagnostics": diag}
+               "jigsaw": jig, "diagnostics": diag, "moe_aircraft": moe, "dp_world1": dp1}
     launches = {k: sum(p[k] for p in by_path.values()) for k in aircraft_launches}
     main_n = PATH["batch"]
     tm, big = check["timing"][main_n], check["timing"][2**20]

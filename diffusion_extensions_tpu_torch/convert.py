@@ -49,6 +49,7 @@ __all__ = [
 _ENC = "TransformerEncoder_0"
 _MHA = "MultiHeadDotProductAttention_0"
 _FUSED = "FusedSelfAttention_0"
+_MOE = "MoEFFN_0"
 
 
 def _flatten(tree, prefix=()):
@@ -66,15 +67,22 @@ def _unwrap(params_np):
 
 
 def planenet_config_from_flax(params_np) -> dict:
-    """(dim, heads, layers) of a flax PlaneNet parameter tree."""
+    """(dim, heads, layers) of a flax PlaneNet parameter tree, and
+    ``moe_experts`` when its layers hold a Switch MoE (the dispatch is not
+    in the tree: the caller picks it)."""
     p = _unwrap(params_np)
     try:
         enc = p[_ENC]
         layers = len([k for k in enc if k.startswith("TransformerEncoderLayer_")])
-        dim, heads, _ = np.shape(enc["TransformerEncoderLayer_0"][_MHA]["query"]["kernel"])
+        layer0 = enc["TransformerEncoderLayer_0"]
+        dim, heads, _ = np.shape(layer0[_MHA]["query"]["kernel"])
+        experts = np.shape(layer0[_MOE]["router"]["kernel"])[1] if _MOE in layer0 else 0
     except (KeyError, TypeError, ValueError) as e:
         raise ValueError(f"not a flax PlaneNet parameter tree: {e!r}") from None
-    return {"dim": int(dim), "heads": int(heads), "layers": layers}
+    cfg = {"dim": int(dim), "heads": int(heads), "layers": layers}
+    if experts:
+        cfg["moe_experts"] = int(experts)
+    return cfg
 
 
 def _dense(src, dst):
@@ -85,10 +93,11 @@ def _dense(src, dst):
     }
 
 
-def _block_mapping(src: str, dst: str, fused_qkv: bool = False) -> dict:
+def _block_mapping(src: str, dst: str, fused_qkv: bool = False, moe: bool = False) -> dict:
     """One post-norm attention block (``TransformerEncoderLayer`` or
     ``TransformerCrossLayer``): flax paths under ``src`` -> port keys under
-    ``dst``."""
+    ``dst``.  ``moe``: the feed-forward pair is a ``MoEFFN`` (its router a
+    Dense, the expert leaves kept in their (E, ...) layout)."""
     m = {}
     if fused_qkv:
         m.update(_dense(f"{src}/{_FUSED}/qkv", f"{dst}.qkv"))
@@ -104,6 +113,11 @@ def _block_mapping(src: str, dst: str, fused_qkv: bool = False) -> dict:
         m[f"{src}/{_MHA}/out/bias"] = (f"{dst}.out.bias", lambda a: a)
     for j, norm in ((0, "norm1"), (1, "norm2")):
         m.update(_layer_norm(f"{src}/LayerNorm_{j}", f"{dst}.{norm}"))
+    if moe:
+        m.update(_dense(f"{src}/{_MOE}/router", f"{dst}.moe.router"))
+        for leaf in ("w1", "b1", "w2", "b2"):
+            m[f"{src}/{_MOE}/{leaf}"] = (f"{dst}.moe.{leaf}", lambda a: a)
+        return m
     m.update(_dense(f"{src}/Dense_0", f"{dst}.ff1"))
     m.update(_dense(f"{src}/Dense_1", f"{dst}.ff2"))
     return m
@@ -115,7 +129,7 @@ def _layer_norm(src, dst):
 
 
 def _block_shapes(src: str, dim: int, heads: int, dff: int = 2048,
-                  fused_qkv: bool = False) -> dict:
+                  fused_qkv: bool = False, moe_experts: int = 0) -> dict:
     hd = dim // heads
     s = {}
     if fused_qkv:
@@ -130,6 +144,12 @@ def _block_shapes(src: str, dim: int, heads: int, dff: int = 2048,
     for j in (0, 1):
         s[f"{src}/LayerNorm_{j}/scale"] = (dim,)
         s[f"{src}/LayerNorm_{j}/bias"] = (dim,)
+    if moe_experts:
+        e = moe_experts
+        s.update(_dense_shapes(f"{src}/{_MOE}/router", dim, e))
+        s.update({f"{src}/{_MOE}/w1": (e, dim, dff), f"{src}/{_MOE}/b1": (e, dff),
+                  f"{src}/{_MOE}/w2": (e, dff, dim), f"{src}/{_MOE}/b2": (e, dim)})
+        return s
     s.update(_dense_shapes(f"{src}/Dense_0", dim, dff))
     s.update(_dense_shapes(f"{src}/Dense_1", dff, dim))
     return s
@@ -139,20 +159,22 @@ def _dense_shapes(src: str, fan_in: int, fan_out: int) -> dict:
     return {f"{src}/kernel": (fan_in, fan_out), f"{src}/bias": (fan_out,)}
 
 
-def _mapping(layers: int) -> dict:
+def _mapping(layers: int, moe: bool = False) -> dict:
     """flax leaf path -> (state-dict key, numpy transform)."""
     m = {}
     m.update(_dense("Siren_0/Dense_0", "siren.lin"))
     m.update(_dense("Siren_0/Dense_1", "siren.post"))
     for i in range(layers):
-        m.update(_block_mapping(f"{_ENC}/TransformerEncoderLayer_{i}", f"encoder.layers.{i}"))
+        m.update(_block_mapping(f"{_ENC}/TransformerEncoderLayer_{i}", f"encoder.layers.{i}",
+                                moe=moe))
     m.update(_dense("PoolRN_0/Dense_0", "pool.gate"))
     m.update(_dense("PoolRN_0/Dense_1", "pool.val"))
     m.update(_dense("Dense_0", "head"))
     return m
 
 
-def _expected_shapes(dim: int, heads: int, layers: int, dff: int = 2048) -> dict:
+def _expected_shapes(dim: int, heads: int, layers: int, dff: int = 2048,
+                     moe_experts: int = 0) -> dict:
     half = dim // 2
     s = {
         "Siren_0/Dense_0/kernel": (3, half), "Siren_0/Dense_0/bias": (half,),
@@ -162,7 +184,8 @@ def _expected_shapes(dim: int, heads: int, layers: int, dff: int = 2048) -> dict
         "Dense_0/kernel": (dim, 3), "Dense_0/bias": (3,),
     }
     for i in range(layers):
-        s.update(_block_shapes(f"{_ENC}/TransformerEncoderLayer_{i}", dim, heads, dff))
+        s.update(_block_shapes(f"{_ENC}/TransformerEncoderLayer_{i}", dim, heads, dff,
+                               moe_experts=moe_experts))
     return s
 
 
@@ -185,8 +208,9 @@ def _convert(name: str, params_np, expected: dict, mapping: dict) -> dict[str, t
 def planenet_params_from_flax(params_np) -> dict[str, torch.Tensor]:
     """State dict for ``PlaneNet(**planenet_config_from_flax(params_np))``."""
     cfg = planenet_config_from_flax(params_np)
-    expected = _expected_shapes(cfg["dim"], cfg["heads"], cfg["layers"])
-    return _convert("PlaneNet", params_np, expected, _mapping(cfg["layers"]))
+    experts = cfg.get("moe_experts", 0)
+    expected = _expected_shapes(cfg["dim"], cfg["heads"], cfg["layers"], moe_experts=experts)
+    return _convert("PlaneNet", params_np, expected, _mapping(cfg["layers"], moe=experts > 0))
 
 
 def rot_predict_config_from_flax(params_np) -> dict:

@@ -4,6 +4,8 @@
     python -m diffusion_extensions_tpu_torch.experiments.aircraft --so3 --steps 10000
     python -m diffusion_extensions_tpu_torch.experiments.aircraft --so3 --test
     python -m diffusion_extensions_tpu_torch.experiments.aircraft --test --euler-init haar
+    python -m diffusion_extensions_tpu_torch.experiments.aircraft --so3 --moe-experts 4 --bf16
+    torchrun --nproc_per_node 2 -m diffusion_extensions_tpu_torch.experiments.aircraft --so3 --tp 2
 
 Training: the state is the identity rotation (``--so3``) or zero XYZ Euler
 angles (the Euler arm) and ``PlaneNet`` sees the point cloud rendered
@@ -14,7 +16,20 @@ through the projection ``data @ R^T``; one step draws t and the noise
 (``test_loss``) and the steps per second are logged;
 checkpoints (weights, optimizer, step, generator) go to the directory
 ``--ckpt`` every ``--ckpt-every`` steps and at ``--steps``, and ``--resume``
-continues from the newest.
+continues from the newest.  ``--moe-experts E`` swaps every encoder
+layer's feed-forward pair for a Switch MoE (``--moe-dispatch``); the loss
+then adds 0.01 times the load-balance loss, and each logged row the
+experts' token fractions on the validation probe.
+
+Launched by torchrun (or the ``DXT_*`` variables, ``parallel/launch.py``)
+the driver joins the process group: every rank loads the same global
+batch, draws t and the noise for all of it and takes its slice, and the
+gradients are averaged over the ranks (``parallel/dp.py``; each rank's
+MoE layers route its own slice, as the JAX package's data-parallel step
+does).  ``--tp``, ``--sp`` and ``--fsdp`` take the
+one-program step of ``parallel/gspmd.py`` over a ("dp", "sp", "tp") mesh
+instead (eager, one step a call; its MoE layers route the global batch);
+without a launcher they run in a group of one process.
 
 ``--test`` samples SAMPLES_PER_SHAPE rotations per test shape with the
 ancestral chain and prints the angle-error percentile table.  The Euler
@@ -37,13 +52,15 @@ import subprocess
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..data.shapenet import BatchLoader, ShapeNet, synthetic_planes
 from ..models.planenet import PlaneNet
 from ..models.projections import PointCloudProj
 from ..ops.so3 import euler_to_rmat, haar_rotations, log_rmat_vec, rmat_to_aa, rmat_to_euler
-from ..parallel.dp import make_dp_train_step
+from ..parallel.dp import make_dp_train_step, shard_batch
+from ..parallel.launch import maybe_initialize_distributed
 from ..processes.r3 import ProjectedGaussianDiffusion
 from ..processes.schedule import extract
 from ..processes.so3 import ProjectedSO3Diffusion
@@ -58,14 +75,7 @@ from ..train.state import (
 
 SAMPLES_PER_SHAPE = 8
 PERCENTILES = (1, 5, 10, 50, 90, 95, 99)
-# flags of the JAX driver that the port parses and does not serve yet:
-# (flag, its default, where ROADMAP.md queues it)
-NOT_PORTED = (
-    ("tp", 1, "A.8 (scale-out: DTensor tp)"),
-    ("sp", 1, "A.8 (scale-out: sequence parallelism)"),
-    ("fsdp", False, "A.8 (scale-out: FSDP2)"),
-    ("moe_experts", 0, "A.8 (scale-out: models/moe.py)"),
-)
+AUX_WEIGHT = 0.01  # the JAX driver's weight of the MoE load-balance loss
 
 
 def load_data(split: str, args) -> np.ndarray:
@@ -89,19 +99,11 @@ def subsample_points(clouds: np.ndarray, samples: int, seed: int) -> np.ndarray:
     return np.take_along_axis(clouds, cols[..., None], axis=1)
 
 
-def check_ported(args) -> None:
-    for name, default, item in NOT_PORTED:
-        if getattr(args, name) != default:
-            raise SystemExit(
-                f"--{name.replace('_', '-')} is not ported yet: ROADMAP.md {item}"
-            )
-
-
 def build(args, device):
     """(model, process); the model's init is seeded by ``args.seed``."""
-    check_ported(args)
     torch.manual_seed(args.seed)
-    model = PlaneNet(dim=args.dim, heads=args.heads, layers=args.layers, bf16=args.bf16)
+    model = PlaneNet(dim=args.dim, heads=args.heads, layers=args.layers, bf16=args.bf16,
+                     moe_experts=args.moe_experts, moe_dispatch=args.moe_dispatch)
     model = model.to(device)
     if args.so3:
         process = ProjectedSO3Diffusion(timesteps=args.timesteps, device=device)
@@ -117,15 +119,64 @@ def true_pos(b: int, so3: bool, device) -> torch.Tensor:
     return torch.zeros((b, 3), device=device)
 
 
-def make_loss_fn(model, process, so3: bool = True):
+def make_loss_fn(model, process, so3: bool = True, aux_weight: float = AUX_WEIGHT):
     """``loss_fn(generator, batch)``: the process's loss of the clean state
     seen through the batch's clouds.  ``batch`` is the clouds (B, N, 3), or
-    ``(clouds, t, noise)`` to fix the timesteps and the noise."""
+    ``(clouds, t, noise)`` to fix the timesteps and the noise.  With MoE
+    layers, ``aux_weight`` times the mean over the loss's model calls of
+    the load-balance loss (summed over the layers) is added."""
+    moe = getattr(model, "moe_experts", 0) > 0
 
     def loss_fn(generator, batch):
         clouds, t, noise = batch if isinstance(batch, (tuple, list)) else (batch, None, None)
-        return process.loss(model, generator, true_pos(clouds.shape[0], so3, clouds.device),
+        aux = []
+
+        def denoise(x, t):
+            out = model(x, t)
+            if moe:
+                aux.append(model.moe_aux())
+            return out
+
+        base = process.loss(denoise, generator, true_pos(clouds.shape[0], so3, clouds.device),
                             PointCloudProj(clouds, so3=so3), t=t, noise=noise)
+        if aux:
+            base = base + aux_weight * sum(aux) / len(aux)
+        return base
+
+    return loss_fn
+
+
+def draw_t_noise(process, generator, b: int, so3: bool = True):
+    """The timesteps and the noise ``process.loss`` draws for a batch of
+    ``b``, in its order: t uniform on [0, T), then IGSO(3) or standard
+    normal noise."""
+    t = torch.randint(0, process.num_timesteps, (b,), generator=generator, device=process.device)
+    if so3:
+        return t, process.sample_noise(generator, t)
+    return t, torch.randn((b, 3), generator=generator, device=process.device)
+
+
+def make_global_loss_fn(model, process, shards, so3: bool = True,
+                        aux_weight: float = AUX_WEIGHT):
+    """The loss of a step over ranks: the global batch's clouds in, t and
+    noise drawn for all of it from the generator every rank holds alike,
+    then this rank's slice through ``make_loss_fn``.  ``shards`` is the
+    ("dp", "sp", "tp") mesh of the one-program step (``parallel/gspmd.py``:
+    rows over "dp", points over "sp") or the "dp" process group of the
+    data-parallel step (rows)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ..parallel.gspmd import shard_global_batch
+
+    inner = make_loss_fn(model, process, so3, aux_weight)
+
+    def loss_fn(generator, clouds):
+        t, noise = draw_t_noise(process, generator, clouds.shape[0], so3)
+        if isinstance(shards, DeviceMesh):
+            local = shard_global_batch(shards, (clouds, t, noise), seq_dims=(0,))
+        else:
+            local = shard_batch((clouds, t, noise), shards)
+        return inner(generator, tuple(local))
 
     return loss_fn
 
@@ -152,13 +203,18 @@ def make_val_probe(model, process, clouds: torch.Tensor, t_v: torch.Tensor,
 
 
 def make_loader(train_data: np.ndarray, args, device):
-    """The native threaded loader where it builds, else the numpy loader."""
+    """The native threaded loader where it builds, else the numpy loader.
+    In a process group of several ranks the native loader runs one worker
+    thread, so that every rank draws the same global batches (the order of
+    two threads' batches is the order they finish in)."""
     if not args.no_native:
         try:
             from ..data.native import NativeBatchLoader
 
+            ranks = dist.get_world_size() if dist.is_initialized() else 1
             loader = NativeBatchLoader(train_data, args.batch, samples=args.samples,
-                                       seed=args.seed, n_threads=2, device=device)
+                                       seed=args.seed, n_threads=2 if ranks == 1 else 1,
+                                       device=device)
             print("using native threaded batch loader")
             return loader
         except (OSError, subprocess.CalledProcessError) as e:
@@ -168,11 +224,41 @@ def make_loader(train_data: np.ndarray, args, device):
                             seed=args.seed, device=device))
 
 
+def make_mesh_for(args, device):
+    """The ("dp", "sp", "tp") mesh of ``--tp`` / ``--sp`` / ``--fsdp`` over
+    the process group (a group of one process when no launcher made one)."""
+    from ..parallel.mesh import make_mesh
+
+    if args.sp > 1 and args.samples % args.sp:
+        raise SystemExit(f"--sp {args.sp} does not divide --samples {args.samples}; "
+                         "sequence parallelism needs a divisible points axis")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world % (args.sp * args.tp):
+        raise SystemExit(f"--sp {args.sp} --tp {args.tp} need a multiple of {args.sp * args.tp} "
+                         f"processes, the group has {world}: launch with torchrun "
+                         f"--nproc_per_node {args.sp * args.tp}")
+    if not dist.is_initialized():  # train() ends it
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    return make_mesh([("dp", -1), ("sp", args.sp), ("tp", args.tp)], device.type)
+
+
 def train(args) -> TrainState:
     device = resolve_device(args.device)
+    maybe_initialize_distributed(device)
+    if device.type == "cuda" and dist.is_initialized():
+        device = torch.device("cuda", torch.cuda.current_device())
     model, process = build(args, device)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"PlaneNet params: {n_params/1e6:.2f}M")
+    K = max(args.steps_per_call, 1)
+    gspmd = args.tp > 1 or args.sp > 1 or args.fsdp
+    own_group = gspmd and not dist.is_initialized()
+    mesh = make_mesh_for(args, device) if gspmd else None
+    if gspmd:
+        from ..parallel.gspmd import shard_params
+
+        shard_params(model, mesh, fsdp=args.fsdp)
     optimizer = make_optimizer(
         model.named_parameters(), args.lr, clip=args.clip, schedule=args.lr_schedule,
         total_steps=args.steps, impl=args.opt_impl, state_dtype=args.opt_state_dtype,
@@ -182,16 +268,30 @@ def train(args) -> TrainState:
     if args.resume:
         state = restore_checkpoint(args.ckpt, state)
 
-    K = max(args.steps_per_call, 1)
-    step_fn = make_dp_train_step(
-        make_loss_fn(model, process, args.so3), model, optimizer, steps_per_call=K,
-        log_norms=args.log_norms or args.log_norms_per_layer,
-        per_layer_norms=args.log_norms_per_layer,
-    )
-    # the loader is seeded anew at a resume, as the reference's is
+    group = None
+    if gspmd:
+        from ..parallel.gspmd import make_gspmd_train_step, shard_global_batch
+
+        if K != 1:
+            print("--tp/--sp/--fsdp uses steps_per_call=1")
+            K = 1
+        step_fn = make_gspmd_train_step(make_global_loss_fn(model, process, mesh, args.so3),
+                                        model, optimizer, mesh, fsdp=args.fsdp)
+    else:
+        group = dist.group.WORLD if dist.is_initialized() else None
+        loss_fn = (make_loss_fn(model, process, args.so3) if group is None
+                   else make_global_loss_fn(model, process, group, args.so3))
+        step_fn = make_dp_train_step(
+            loss_fn, model, optimizer, steps_per_call=K,
+            log_norms=args.log_norms or args.log_norms_per_layer,
+            per_layer_norms=args.log_norms_per_layer, group=group,
+        )
+    # the loader is seeded anew at a resume, as the reference's is; every
+    # rank draws the same global batches
     loader = make_loader(load_data("train", args), args, device)
 
-    # frozen validation probe: fixed (t, noise, clouds)
+    # frozen validation probe: fixed (t, noise, clouds); under sp each rank
+    # holds its slice of the points
     v_clouds = subsample_points(load_data("valid", args)[: args.batch], args.samples,
                                 args.seed + 29)
     t_v = torch.randint(0, process.num_timesteps, (len(v_clouds),), device=device,
@@ -201,10 +301,15 @@ def train(args) -> TrainState:
         noise_v = process.q_table.sample(noise_gen, t_v)
     else:
         noise_v = torch.randn((len(v_clouds), 3), generator=noise_gen, device=device)
-    val_loss = make_val_probe(model, process, torch.from_numpy(v_clouds).to(device),
-                              t_v, noise_v, args.so3)
+    v_clouds = torch.from_numpy(v_clouds).to(device)
+    if gspmd:
+        (v_clouds,) = shard_global_batch(mesh, (v_clouds,), seq_dims=(0,), dp_axis=None)
+    val_loss = make_val_probe(model, process, v_clouds, t_v, noise_v, args.so3)
+    expert_fracs = model.expert_fracs if args.moe_experts > 0 else None
 
-    logger = MetricLogger(jsonl_path=args.log, print_every=args.print_every)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    logger = MetricLogger(jsonl_path=args.log if lead else None,
+                          print_every=args.print_every if lead else 0)
     meter = Throughput()
     profile_step = trace_window(args.profile_dir) if args.profile_dir else None
     try:
@@ -225,6 +330,11 @@ def train(args) -> TrainState:
                 row = {name: float(v) for name, v in metrics.items()}
                 row["test_loss"] = float(val_loss())
                 row["steps_per_sec"] = meter.steps_per_sec or float("nan")
+                if expert_fracs is not None:  # of the probe's forward just run
+                    fr = expert_fracs().cpu().numpy()  # (layers, E)
+                    row["expert_frac_min"] = float(fr.min())
+                    row["expert_frac_max"] = float(fr.max())
+                    row["expert_fracs"] = [[round(float(v), 4) for v in layer] for layer in fr]
                 logger.log(i, row)
             if i % args.ckpt_every == 0 or i == args.steps:
                 save_checkpoint(args.ckpt, state)
@@ -232,6 +342,8 @@ def train(args) -> TrainState:
         logger.close()
         if hasattr(loader, "close"):
             loader.close()  # join the native worker threads
+        if own_group:
+            dist.destroy_process_group()
     return state
 
 
@@ -315,13 +427,18 @@ def parse_args(argv=None):
                    help="disable the C++ threaded batch loader")
     p.add_argument("--steps-per-call", dest="steps_per_call", type=int,
                    default=1, help="run K optimizer steps per call of the step function")
-    p.add_argument("--tp", type=int, default=1, help="not ported yet")
-    p.add_argument("--fsdp", action="store_true", help="not ported yet")
-    p.add_argument("--sp", type=int, default=1, help="not ported yet")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel mesh size (Megatron pairs; one-program step)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="FSDP2 over the dp axis: weights and Adam moments sharded at rest")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel mesh size: the points axis split over 'sp'")
     p.add_argument("--moe-experts", dest="moe_experts", type=int, default=0,
-                   help="not ported yet")
+                   help="swap every encoder FFN for a Switch MoE with this many experts "
+                        "(models/moe.py); 0 = dense")
     p.add_argument("--moe-dispatch", dest="moe_dispatch", default="scatter",
-                   choices=("onehot", "scatter"), help="with --moe-experts")
+                   choices=("onehot", "scatter"),
+                   help="MoE token dispatch: (T, E, C) one-hot einsums or slot scatter")
     p.add_argument("--log-norms", dest="log_norms", action="store_true",
                    help="log grad/param global norms")
     p.add_argument("--log-norms-per-layer", dest="log_norms_per_layer",

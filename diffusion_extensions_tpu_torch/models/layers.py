@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 __all__ = [
@@ -113,19 +114,72 @@ def _gate(x: torch.Tensor, gate: nn.Linear, mask) -> torch.Tensor:
     return weight
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """All-reduce (sum) over ``group``; the gradient is summed alike."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _GatherTokens(torch.autograd.Function):
+    """The token axis (dim 1) of every rank of ``group``, in rank order; the
+    backward sums the gradient over the ranks and keeps this rank's slice
+    (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return grad.chunk(n, dim=1)[r].contiguous(), None
+
+
+def _sp_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the sequence-parallel ranks of ``group`` (none: as
+    it is); differentiable."""
+    return x if group is None else _SumOverRanks.apply(x, group)
+
+
+def _sp_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """The tokens (dim 1) of every sequence-parallel rank of ``group``, in
+    rank order (none: ``x``); differentiable."""
+    return x if group is None else _GatherTokens.apply(x, group)
+
+
 class PoolRN(nn.Module):
     """Sigmoid-gated weighted mean of projected features over the token
-    axis; ``mask`` (..., L) bool keeps padding out."""
+    axis; ``mask`` (..., L) bool keeps padding out.  With ``sp_group`` set
+    (sequence parallelism) each rank holds a slice of the tokens and both
+    sums are all-reduced over the group."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.gate = dense(dim, 1)
         self.val = dense(dim, dim)
+        self.sp_group = None
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         weight = _gate(x, self.gate, mask)
-        w_sum = torch.clamp(torch.sum(weight, dim=-2), min=1e-6)
-        return torch.sum(self.val(x) * weight, dim=-2) / w_sum
+        w_sum = torch.clamp(_sp_sum(torch.sum(weight, dim=-2), self.sp_group), min=1e-6)
+        return _sp_sum(torch.sum(self.val(x) * weight, dim=-2), self.sp_group) / w_sum
 
 
 class PoolPos(nn.Module):
@@ -170,14 +224,23 @@ class _AttentionBlock(nn.Module):
     keys and values from ``ctx``.  ``mask`` is a bool tensor broadcastable
     to (B, heads, Lq, Lk), True = attend: a masked logit becomes float32's
     most negative finite value before the softmax, as in flax.  The softmax
-    runs in float32 under autocast (in float64 on float64 weights)."""
+    runs in float32 under autocast (in float64 on float64 weights).
 
-    def __init__(self, dim: int, heads: int, fused_qkv: bool = False):
+    ``moe_experts > 0`` replaces the feed-forward pair with a Switch MoE
+    (``models/moe.py``).  The number of heads a call computes is the
+    projections' width over ``head_dim``, so a block whose q / k / v are
+    column-sharded over tensor-parallel ranks runs its own heads.  With
+    ``sp_group`` set (sequence parallelism) keys and values are gathered
+    over the group's ranks, each of which holds a slice of the tokens."""
+
+    def __init__(self, dim: int, heads: int, fused_qkv: bool = False, moe_experts: int = 0,
+                 moe_dispatch: str = "onehot"):
         super().__init__()
         if dim % heads:
             raise ValueError(f"dim {dim} is not divisible by heads {heads}")
-        self.heads = heads
+        self.heads, self.head_dim = heads, dim // heads
         self.fused_qkv = fused_qkv
+        self.sp_group = None
         if fused_qkv:
             self.qkv = dense(dim, 3 * dim)
         else:
@@ -186,8 +249,14 @@ class _AttentionBlock(nn.Module):
             self.value = dense(dim, dim)
         self.out = dense(dim, dim)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff1 = dense(dim, DIM_FEEDFORWARD)
-        self.ff2 = dense(DIM_FEEDFORWARD, dim)
+        if moe_experts > 0:
+            from .moe import MoEFFN
+
+            self.moe = MoEFFN(dim, moe_experts, DIM_FEEDFORWARD, dispatch=moe_dispatch)
+        else:
+            self.moe = None
+            self.ff1 = dense(dim, DIM_FEEDFORWARD)
+            self.ff2 = dense(DIM_FEEDFORWARD, dim)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
 
     def _fused_attention(self, x: torch.Tensor, mask=None) -> torch.Tensor:
@@ -209,32 +278,33 @@ class _AttentionBlock(nn.Module):
     def _attention(self, x: torch.Tensor, ctx: torch.Tensor, mask=None) -> torch.Tensor:
         if self.fused_qkv:
             return self._fused_attention(x, mask)
-        b, s, dim = x.shape
-        hd = dim // self.heads
+        b, s = x.shape[:2]
+        hd = self.head_dim
 
-        def split(y):  # (B, S, dim) -> (B, H, S, hd)
-            return y.reshape(b, y.shape[1], self.heads, hd).transpose(1, 2)
+        def split(y):  # (B, S, H * hd) -> (B, H, S, hd)
+            return y.reshape(b, y.shape[1], -1, hd).transpose(1, 2)
 
         q = split(self.query(x)) / math.sqrt(hd)
-        k = split(self.key(ctx))
-        v = split(self.value(ctx))
+        k = split(_sp_gather(self.key(ctx), self.sp_group))
+        v = split(_sp_gather(self.value(ctx), self.sp_group))
         logits = widen(torch.matmul(q, k.transpose(-1, -2)))
         if mask is not None:
             logits = logits.masked_fill(~mask, _MASKED)
         weights = torch.softmax(logits, dim=-1).to(v.dtype)
-        o = torch.matmul(weights, v).transpose(1, 2).reshape(b, s, dim)
+        o = torch.matmul(weights, v).transpose(1, 2).reshape(b, s, -1)
         return self.out(o)
 
     def _block(self, x: torch.Tensor, ctx: torch.Tensor, mask) -> torch.Tensor:
         x = self.norm1(x + self._attention(x, ctx, mask))
-        h = self.ff2(torch.relu(self.ff1(x)))
+        h = self.moe(x) if self.moe is not None else self.ff2(torch.relu(self.ff1(x)))
         return self.norm2(x + h)
 
 
 class TransformerEncoderLayer(_AttentionBlock):
     """Post-norm self-attention + ReLU feed-forward block.  ``fused_qkv``:
     one (dim, 3 dim) projection for q, k and v (the JAX package's
-    ``FusedSelfAttention``)."""
+    ``FusedSelfAttention``); ``moe_experts > 0``: a Switch MoE in place of
+    the feed-forward pair, dispatched by ``moe_dispatch``."""
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         return self._block(x, x, mask)
@@ -257,13 +327,15 @@ class TransformerEncoder(nn.Module):
 
     ``key_padding_mask`` (B, L) bool, True = a token; ``attn_mask`` (a bool
     tensor broadcastable to (B, heads, L, L), True = attend) overrides it.
-    Returns float32 under autocast."""
+    ``moe_experts`` / ``moe_dispatch`` go to every layer (the JAX layers'
+    default dispatch is "onehot").  Returns float32 under autocast."""
 
     def __init__(self, dim: int, heads: int, layers: int, final_norm: bool = False,
-                 fused_qkv: bool = False):
+                 fused_qkv: bool = False, moe_experts: int = 0, moe_dispatch: str = "onehot"):
         super().__init__()
-        self.layers = nn.ModuleList(TransformerEncoderLayer(dim, heads, fused_qkv)
-                                    for _ in range(layers))
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(dim, heads, fused_qkv, moe_experts, moe_dispatch)
+            for _ in range(layers))
         self.norm = nn.LayerNorm(dim, eps=1e-5) if final_norm else None
 
     def forward(self, x: torch.Tensor, key_padding_mask: torch.Tensor | None = None,

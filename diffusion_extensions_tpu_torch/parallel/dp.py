@@ -1,26 +1,72 @@
-"""The train step (counterpart of
-``diffusion_extensions_tpu/parallel/dp.py``, on one device).
+"""The data-parallel train step (counterpart of
+``diffusion_extensions_tpu/parallel/dp.py``).
 
-The JAX package shards the batch over a device mesh and all-reduces the
-gradients; this module keeps its name and the semantics of its ``one_step``
-on a single device.  Gradient all-reduce across cards is not ported.
+One process per card: each rank of a ``"dp"`` process group computes the
+loss and its gradients on its slice of the global batch (``shard_batch``),
+and the gradients are averaged over the group (one all-reduce of all of
+them, the JAX package's ``pmean``) before the optimizer update, so every
+rank applies the same update and the weights stay replicated.  The loss
+reported is the group's mean.  Without a group (or in a group of one) the
+step is the single-device step.
 
 Where the JAX package fuses K steps of one call with ``lax.scan`` to save
-dispatches, this module captures one step (loss, backward, optimizer
-update) in a CUDA graph and replays it for each sub-step, so a step costs
-the host one copy into the graph's input and one launch.
+dispatches, this module captures one step (loss, backward, all-reduce,
+optimizer update) in a CUDA graph and replays it for each sub-step, so a
+step costs the host one copy into the graph's input and one launch.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..train.optim import Adam, global_norm
 from ..train.state import TrainState
 
-__all__ = ["make_dp_train_step"]
+__all__ = ["make_dp_train_step", "shard_batch", "mean_over"]
+
+
+def slice_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's part of dimension ``dim`` of ``x``, cut into the group's
+    world size of equal parts."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of size {x.shape[dim]} does not divide over {n} ranks")
+    size = x.shape[dim] // n
+    return x.narrow(dim, r * size, size)
+
+
+def shard_batch(batch, group=None):
+    """This rank's slice of a global batch: the leading dimension of every
+    tensor cut into the group's world size of equal parts (the whole batch
+    without a group)."""
+    return batch if group is None else _map(lambda x: slice_dim(x, 0, group), batch)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a plain tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def mean_over(tensors: list, groups: list) -> None:
+    """Average ``tensors`` in place over each process group of ``groups``
+    in turn: one all-reduce of one flat buffer a group.  A DTensor is
+    averaged through its local shard."""
+    if not groups:
+        return
+    local = [_local(t) for t in tensors]
+    flat = torch.cat([t.reshape(-1) for t in local])
+    for group in groups:
+        dist.all_reduce(flat, group=group)
+        flat /= dist.get_world_size(group)
+    offset = 0
+    for t in local:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
 
 
 def _index(batch, i: int):
@@ -57,7 +103,7 @@ class _CapturedStep:
     accumulates gradients on the stream that first did.  A step that cannot
     be captured raises from here."""
 
-    def __init__(self, loss_fn, optimizer, generator, batch, stream):
+    def __init__(self, loss_fn, optimizer, generator, batch, stream, reduce):
         self.generator = generator
         self.batch = _map(torch.clone, batch)
         self.graph = torch.cuda.CUDAGraph()
@@ -66,6 +112,7 @@ class _CapturedStep:
         with torch.cuda.graph(self.graph, stream=stream):
             loss = loss_fn(generator, self.batch)
             loss.backward()
+            loss = reduce(loss, [p.grad for p in optimizer.params])
             optimizer.step()
         self.loss = loss.detach()  # keeps the value's memory, not the autograd graph
         self.grads = [p.grad for p in optimizer.params]  # the graph's own memory
@@ -90,6 +137,7 @@ def make_dp_train_step(
     log_norms: bool = False,
     per_layer_norms: bool = False,
     skip_nonfinite: bool = False,
+    group=None,
 ):
     """Build ``step(state, batch) -> (state, metrics)``.
 
@@ -117,9 +165,28 @@ def make_dp_train_step(
     ``skip_nonfinite``: a step whose loss or gradient norm is not finite
     leaves weights and optimizer state untouched while the step counter
     (and the generator) advance; the check waits for the device.
+
+    ``group``: the ``"dp"`` process group.  Every rank passes the same
+    global batch and ``loss_fn`` takes its slice (``shard_batch``) after it
+    draws the randomness for the whole batch from the state's generator,
+    which every rank holds alike (``experiments/aircraft.py``
+    ``make_global_loss_fn``); the gradients and the reported loss are the
+    group's means.  One all-reduce runs here, before any capture, so that
+    the communicator exists outside it; a captured step holds its
+    all-reduce.
     """
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
+    if group is not None:
+        dist.all_reduce(torch.zeros(1, device=params[0].device), group=group)
+
+    def reduce(loss: torch.Tensor, grads: list) -> torch.Tensor:
+        """The group's mean of the gradients (in place) and of the loss."""
+        if group is None:
+            return loss
+        loss = loss.detach().reshape(1).clone()
+        mean_over(grads + [loss], [group])
+        return loss[0]
 
     def add_norms(metrics: dict, grads: list) -> None:
         """The norms of the step's gradients and of the weights after it."""
@@ -139,6 +206,7 @@ def make_dp_train_step(
         loss = loss_fn(state.generator, batch)
         loss.backward()
         grads = [p.grad for p in params]
+        loss = reduce(loss, grads)
         ok = True
         if skip_nonfinite:
             ok = bool(torch.isfinite(loss) & torch.isfinite(global_norm(grads)))
@@ -166,7 +234,7 @@ def make_dp_train_step(
                 with torch.cuda.stream(side[0]):
                     out = one_step(state, batch, want_norms)
                 torch.cuda.current_stream().wait_stream(side[0])
-            graph = _CapturedStep(loss_fn, optimizer, state.generator, batch, side[0])
+            graph = _CapturedStep(loss_fn, optimizer, state.generator, batch, side[0], reduce)
             captured.append(graph)
             if out is not None:
                 return out

@@ -7,6 +7,11 @@ Checkpoints live in a **directory**, one ``torch.save`` file per step
 (``step_00001000.pt``); the newest ``MAX_TO_KEEP`` are kept.  Files are
 read back with ``weights_only=True`` (tensors, numbers, strings and dicts
 of them only).
+
+In a process group, every rank calls ``save_checkpoint`` (weights and
+moments sharded as DTensors, by FSDP2 or tensor parallelism, are gathered
+whole) and rank 0 writes; every rank restores from the same file, each
+taking its own shards.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .optim import Adam
@@ -59,20 +65,46 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: Optional[int] = None
     """Write ``state`` as step ``step`` (default ``state.step``) and drop all
     but the newest ``MAX_TO_KEEP`` checkpoints; returns the file's path."""
     step = state.step if step is None else step
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = checkpoint_path(ckpt_dir, step)
     payload = {
         "step": state.step,
-        "params": {k: v.detach() for k, v in state.model.state_dict().items()},
-        "opt_state": state.optimizer.state_dict(),
+        "params": {k: _whole(v.detach()) for k, v in state.model.state_dict().items()},
+        "opt_state": _map_tensors(_whole, state.optimizer.state_dict()),
         "generator_state": state.generator.get_state(),
     }
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    for old in _steps(ckpt_dir)[:-MAX_TO_KEEP]:
-        os.remove(checkpoint_path(ckpt_dir, old))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        for old in _steps(ckpt_dir)[:-MAX_TO_KEEP]:
+            os.remove(checkpoint_path(ckpt_dir, old))
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()  # the file is there before any rank reads it
     return path
+
+
+def _whole(t):
+    """A DTensor gathered whole (a collective); any other value as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _map_tensors(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _shards_like(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``src`` (whole) laid out as ``dst``: this rank's shard when ``dst``
+    is a DTensor."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if isinstance(dst, DTensor):
+        return distribute_tensor(src.to(dst.device), dst.device_mesh, dst.placements)
+    return src
 
 
 def restore_checkpoint(ckpt_dir: str, target: TrainState, params_only: bool = False) -> TrainState:
@@ -106,9 +138,14 @@ def restore_checkpoint(ckpt_dir: str, target: TrainState, params_only: bool = Fa
                     f"params_only restore from {ckpt_dir} step {step}: "
                     f"shape mismatch at {name}: stored "
                     f"{tuple(a.shape)} vs model {tuple(b.shape)}")
-    target.model.load_state_dict(raw["params"])
+    target.model.load_state_dict({k: _shards_like(want.get(k), v)
+                                  for k, v in raw["params"].items()})
     if not params_only:
-        target.optimizer.load_state_dict(raw["opt_state"])
+        opt, stored = target.optimizer, raw["opt_state"]
+        mine = {key: dict(zip(opt.names, getattr(opt, key))) for key in ("mu", "nu")}
+        opt.load_state_dict({"count": stored["count"], **{
+            key: {n: _shards_like(mine[key].get(n), v) for n, v in stored[key].items()}
+            for key in ("mu", "nu")}})
     target.generator.set_state(raw["generator_state"].cpu())
     target.step = int(raw["step"])
     return target

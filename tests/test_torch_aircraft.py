@@ -44,11 +44,14 @@ def test_aircraft_test_loads_checkpoint(tmp_path, capsys):
     np.testing.assert_array_equal(a, b)
 
 
-def test_data_matches_jax_package():
+def test_data_matches_jax_package(tmp_path):
+    """The synthetic clouds are the JAX package's; a missing ShapeNet
+    raises; ``--tp`` (a training flag) leaves ``--test``'s samples as they
+    are, as in the JAX driver."""
     from diffusion_extensions_tpu.data.shapenet import synthetic_planes as jplanes
 
     np.testing.assert_array_equal(synthetic_planes(3, 256, seed=2), jplanes(3, 256, seed=2))
     with pytest.raises(FileNotFoundError):
         ShapeNet("test", root="/nonexistent")
-    with pytest.raises(SystemExit):
-        aircraft.main(ARGS + ["--tp", "2"])
+    args = ARGS + ["--ckpt", str(tmp_path / "w.pt"), "--max-shapes", "5"]
+    np.testing.assert_array_equal(aircraft.main(args + ["--tp", "2"]), aircraft.main(args))

@@ -474,3 +474,88 @@ def test_diagnostics_compute_on_the_card(tmp_path, cuda):
     assert float((r.transpose(-1, -2) @ r - torch.eye(3)).abs().max()) < 1e-4
     res = grad_check.main(["--iters", "800", "--lr", "0.05"])
     assert res["loss_last"] < 0.5 * res["loss_first"]
+
+
+# -- the scale-out slice (the gates of chip_smoke.py's phases) --
+def test_moe_planenet_on_the_card_matches_the_cpu(cuda):
+    """A small MoE PlaneNet (both dispatches): forward within 1e-5 of its
+    scale, the same load-balance loss within rtol 1e-5."""
+    from diffusion_extensions_tpu_torch.models.planenet import PlaneNet
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((4, 32, 3)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 100, 4))
+    for dispatch in ("scatter", "onehot"):
+        torch.manual_seed(0)
+        model = PlaneNet(dim=64, heads=4, layers=2, moe_experts=4, moe_dispatch=dispatch)
+        with torch.no_grad():
+            ref, ref_aux = model(x, t), float(model.moe_aux())
+            got = model.to(cuda)(x.to(cuda), t.to(cuda)).cpu()
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+        np.testing.assert_allclose(float(model.moe_aux()), ref_aux, rtol=1e-5)
+
+
+def test_moe_step_replays_to_the_bits_of_eager_steps(cuda):
+    """Eight MoE aircraft steps (dim 64, scatter dispatch, bf16) replayed
+    from a CUDA graph give the weights of eight eager steps."""
+    from diffusion_extensions_tpu_torch.experiments import aircraft
+    from diffusion_extensions_tpu_torch.parallel.dp import make_dp_train_step
+    from diffusion_extensions_tpu_torch.train.optim import make_optimizer
+    from diffusion_extensions_tpu_torch.train.state import TrainState
+
+    args = aircraft.parse_args(["--so3", "--dim", "64", "--layers", "2", "--timesteps", "100",
+                                "--moe-experts", "4", "--bf16"])
+    batches = torch.randn(8, 8, 32, 3, generator=torch.Generator().manual_seed(0)).to(cuda)
+    weights = []
+    for k in (1, 4):
+        model, process = aircraft.build(args, cuda)
+        opt = make_optimizer(model.named_parameters(), 1e-3)
+        step = make_dp_train_step(aircraft.make_loss_fn(model, process), model, opt,
+                                  steps_per_call=k)
+        state = TrainState(model, opt, torch.Generator(device=cuda).manual_seed(1))
+        for i in range(0, 8, k):
+            state, _ = step(state, batches[i] if k == 1 else batches[i:i + k])
+        weights.append(model.state_dict())
+    for name, w in weights[0].items():
+        assert torch.equal(w, weights[1][name]), name
+
+
+def test_nccl_world_of_one_replays_its_all_reduce(cuda):
+    """A NCCL group of one made in this process: K = 4 replayed steps
+    through the all-reduce give the bits of the steps without a group, and
+    the all-reduce was issued while the step was captured."""
+    import torch.distributed as dist
+
+    from diffusion_extensions_tpu_torch.experiments import aircraft
+    from diffusion_extensions_tpu_torch.parallel.dp import make_dp_train_step
+    from diffusion_extensions_tpu_torch.train.optim import make_optimizer
+    from diffusion_extensions_tpu_torch.train.state import TrainState
+
+    args = aircraft.parse_args(["--so3", "--dim", "64", "--layers", "2", "--timesteps", "100"])
+    batches = torch.randn(8, 8, 32, 3, generator=torch.Generator().manual_seed(0)).to(cuda)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    capturing, all_reduce = [], dist.all_reduce
+
+    def recorded(*a, **kw):
+        capturing.append(torch.cuda.is_current_stream_capturing())
+        return all_reduce(*a, **kw)
+
+    try:
+        dist.all_reduce = recorded
+        weights = []
+        for group in (None, dist.group.WORLD):
+            model, process = aircraft.build(args, cuda)
+            opt = make_optimizer(model.named_parameters(), 1e-3)
+            step = make_dp_train_step(aircraft.make_loss_fn(model, process), model, opt,
+                                      steps_per_call=4, group=group)
+            state = TrainState(model, opt, torch.Generator(device=cuda).manual_seed(1))
+            for i in range(0, 8, 4):
+                state, _ = step(state, batches[i:i + 4])
+            weights.append(model.state_dict())
+    finally:
+        dist.all_reduce = all_reduce
+        dist.destroy_process_group()
+    assert sum(capturing) == 1
+    for name, w in weights[0].items():
+        assert torch.equal(w, weights[1][name]), name

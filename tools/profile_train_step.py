@@ -6,7 +6,8 @@
 For each variant of the step at full width (PlaneNet dim 512 / 4 heads / 4
 layers, batch 32 x 256, T = 1000, synthetic clouds): the optimizer's plain
 chain or fused sweep, fp32 or the encoder under bf16 autocast, eager steps
-or one CUDA graph replayed a step (``steps_per_call`` 8).  After 24 warm-up
+or one CUDA graph replayed a step (``steps_per_call`` 8), and the Switch-MoE
+arm (4 experts, scatter or one-hot dispatch, bf16, replayed).  After 24 warm-up
 steps it times ``--steps`` steps with the host's clock around a synchronise,
 then traces the same number with ``torch.profiler`` and prints one JSON line
 per variant: ms a step, the device's busy ms a step (the sum of the kernels'
@@ -37,6 +38,8 @@ VARIANTS = {
     "fp32": ([], 1), "fused": (["--opt-impl", "fused"], 1), "k8": ([], 8),
     "fused_k8": (["--opt-impl", "fused"], 8), "bf16_k8": (["--bf16"], 8),
     "bf16_fused_k8": (["--bf16", "--opt-impl", "fused"], 8),
+    "moe_bf16_k8": (["--bf16", "--moe-experts", "4"], 8),
+    "moe_onehot_bf16_k8": (["--bf16", "--moe-experts", "4", "--moe-dispatch", "onehot"], 8),
 }
 WARMUP = 24
 
