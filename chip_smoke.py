@@ -6,7 +6,7 @@
 Builds every CUDA kernel of the port from the sources in this checkout (one
 nvcc per source, all started together; prints what ptxas says of each and,
 where cuobjdump is there, the SASS instruction counts), holds each against
-its plain PyTorch version on the card, then drives fourteen paths at full size,
+its plain PyTorch version on the card, then drives seventeen paths at full size,
 each with the kernels' launch counts set to 0 just before it and read just
 after:
 
@@ -83,6 +83,13 @@ after:
   the data-parallel all-reduce against the same steps without a group, to
   the bit, the all-reduce issued inside the capture; then ``--fsdp``
   (FSDP2) for 20 eager steps against the plain eager steps.
+* the system's last entry points: ``bench.main(["--quick"])`` (bench_torch:
+  the aircraft headline and bench.py's eleven rows at its configurations,
+  12 launches of the MMD kernel by mmd_eval, every measurement finite and
+  > 0); ``sweep.main`` over a two-point lr grid of the lock driver, one
+  subprocess a point, ranked in a temporary directory with the committed
+  ``sweeps/`` untouched; ``probe_protein`` at the headline width on a
+  checkpoint written here (the 20 block MSEs finite).
 
 Small runs hold the card against the CPU: sampling (aircraft Heun, Bingham
 DDIM), training, the protein slice, and the Euler arms (an aircraft Euler
@@ -101,8 +108,10 @@ CUDA device the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -114,6 +123,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from diffusion_extensions_tpu_torch import bench, sweep
 from diffusion_extensions_tpu_torch.data.jigsaw import JigsawPuzzle, puzzle_rows
 from diffusion_extensions_tpu_torch.data.pdb import (
     pad_prot_batch,
@@ -129,10 +139,12 @@ from diffusion_extensions_tpu_torch.experiments import (
     grad_check,
     jigsaw,
     lock,
+    probe_protein,
     protein,
     so3_toy,
 )
 from diffusion_extensions_tpu_torch.experiments.aircraft import subsample_points
+from diffusion_extensions_tpu_torch.flops import planenet_flops, protein_flops
 from diffusion_extensions_tpu_torch.models.coordconv import STAGES, WIDTH, CoordConv
 from diffusion_extensions_tpu_torch.models.planenet import PlaneNet
 from diffusion_extensions_tpu_torch.models.projections import PointCloudProj, ProtProjection
@@ -261,6 +273,13 @@ MOE = dict(experts=4, steps=208, print_every=8)
 # world size 1 over NCCL: replayed K = 8 steps through the all-reduce, eager
 # --fsdp steps
 DP_WORLD1 = dict(steps=16, fsdp_steps=20)
+# bench_torch --quick: the headline and its eleven rows, the kernel-2
+# launches of mmd_eval (one warm-up call and three timed, three sums each)
+BENCH_MEASUREMENTS, BENCH_MMD_LAUNCHES = 12, 12
+# the sweep: two lock runs (--param so3) over this grid, each this many steps
+SWEEP = dict(grid={"lr": [1e-4, 3e-4]}, steps=50, print_every=10)
+# the probe: the headline flags' checkpoint after one replayed K = 8 call
+PROBE = dict(train_steps=8)
 
 
 def emit(phase: str, **fields) -> None:
@@ -318,42 +337,6 @@ def mmd_bound_ms(n: int, m: int) -> tuple[float, str]:
     t_bytes = (MMD_BYTES_PER_ROT * (n + m) + 4) / HBM_BYTES_PER_S
     t_ops = MMD_OPS_PER_PAIR * n * m / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
-def planenet_flops(dim: int, layers: int, batch: int, points: int, dff: int = 2048) -> float:
-    """Matmul FLOPs of one PlaneNet forward: Siren, per layer q/k/v/out and
-    the feed-forward pair plus QK^T and AV, then the pooling head."""
-    half = dim // 2
-    per_token = 2 * (3 * half + half * half) + 2 * (dim + dim * dim)
-    per_token += layers * (2 * (4 * dim * dim + 2 * dim * dff) + 4 * points * dim)
-    return float(per_token * batch * points)
-
-
-def protein_flops(dim: int, heads: int, t_depth: int, c_depth: int, cross_depth: int,
-                  batch: int, lr: int, ll: int, dff: int = 2048) -> float:
-    """Matmul FLOPs of one ProtNet forward (``planenet_flops``'s counting):
-    per token the residue conv (k = 3), both Sirens, the fused encoder (its
-    q/k/v/out and feed-forward, QK^T and AV over all lr + ll keys of the
-    block-masked pass) and the poolings' projections; per round the two
-    cross layers (queries of one chain, keys and values of the other);
-    per pair the head (equiv_head, frame_pool, rel_frame)."""
-    pos, ang = dim // 2, dim // 4
-    res = dim - pos - ang
-    n = lr + ll
-    per_token = 2 * 3 * (21 * dim + (c_depth - 2) * dim * dim + dim * res)
-    per_token += 2 * (3 * pos + pos * pos) + 2 * (9 * ang + ang * ang)
-    per_token += t_depth * (2 * (4 * dim * dim + 2 * dim * dff) + 4 * n * dim)
-    per_token += 2 * (dim + dim * dim) + 2 * dim + 2 * 4 * dim  # PoolRN, PoolPos, PoolFrame
-    flops = float(per_token * batch * n) + 2 * 2 * dim * batch * lr  # + the moment gate
-
-    def cross(q, kv):
-        return (q * (2 * (2 * dim * dim + 2 * dim * dff) + 4 * kv * dim)
-                + kv * 2 * 2 * dim * dim)
-
-    flops += cross_depth * batch * (cross(lr, ll) + cross(ll, lr))
-    head_in = 3 * dim + 6 + 78 + 72 + 36
-    flops += batch * 2 * (head_in * dim + 3 * dim * dim + 6 * dim)
-    return flops
 
 
 def coordconv_flops(size: int, dim: int = 16) -> tuple[float, float]:
@@ -1171,9 +1154,10 @@ def phase_protein_path(tmp: str) -> dict:
     batch = to_device(pad_prot_batch(pairs), device)
     x_in = ProtProjection(batch)(AffineT.identity((PROTEIN["batch"],), device=device))
     t_in = torch.full((PROTEIN["batch"],), 500, device=device)
-    flops = protein_flops(PROTEIN["dim"], PROTEIN["heads"], PROTEIN["t_depth"],
-                          PROTEIN["c_depth"], PROTEIN["cross_depth"], PROTEIN["batch"],
-                          PROTEIN["receptor"], PROTEIN["ligand"])
+    flops = protein_flops(PROTEIN["dim"], PROTEIN["t_depth"], PROTEIN["c_depth"],
+                          PROTEIN["batch"], PROTEIN["receptor"], PROTEIN["ligand"],
+                          PROTEIN["cross_depth"], frame_pool=True, rel_frame=True,
+                          equiv_head=True)
     fwd = {}
     with torch.inference_mode():
         for name, bf16 in (("fp32", False), ("bf16", True)):
@@ -2128,6 +2112,106 @@ def phase_dp_world1(tmp: str) -> dict:
             "gaussian_kernel_sum": mmd_cuda.launches}
 
 
+def phase_bench() -> dict:
+    """``bench.main(["--quick"])`` in this process (the JSON line it prints
+    is passed on): the headline and its eleven rows finite and > 0, the
+    MMD kernel launched 12 times (by mmd_eval, the only row that runs it),
+    the headline's FlopCounterMode count beside 3x the closed-form forward.
+    Returns each kernel's launches."""
+    igso3_cuda.launches = mmd_cuda.launches = 0
+    result = bench.main(["--quick"])
+    launches = {"igso3_logpdf_score": igso3_cuda.launches,
+                "gaussian_kernel_sum": mmd_cuda.launches}
+    rows = result["rows"]
+    values = {"headline": result["value"], **{
+        name: row["steps_per_sec"] if "steps_per_sec" in row else row["seconds"]
+        for name, row in rows.items()}}
+    bad = {k: v for k, v in values.items()
+           if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0)}
+    fwd = planenet_flops(PATH["dim"], PATH["layers"], PATH["batch"], PATH["samples"])
+    emit("bench", measurements=values, launches=launches, peak=result["peak"],
+         mfu=result["mfu"], gflops_per_step=result["gflops_per_step"],
+         forward_gflop_closed_form=fwd / 1e9,
+         step_over_forward=result["gflops_per_step"] * 1e9 / fwd,
+         picard_sweeps=rows["ddim_50_picard"]["sweeps"])
+    if len(values) != BENCH_MEASUREMENTS or bad:
+        raise AssertionError(f"bench: {len(values)} measurements, not finite or > 0: {bad}")
+    if launches["gaussian_kernel_sum"] != BENCH_MMD_LAUNCHES:
+        raise AssertionError(f"bench: mmd_eval launched gaussian_kernel_sum "
+                             f"{launches['gaussian_kernel_sum']} times")
+    return launches
+
+
+def tree_hash(path: str) -> str:
+    """sha256 over the relative paths and bytes of every file under ``path``."""
+    h = hashlib.sha256()
+    for root, dirs, files in os.walk(path):
+        dirs.sort()
+        for name in sorted(files):
+            full = os.path.join(root, name)
+            h.update(os.path.relpath(full, path).encode())
+            with open(full, "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()
+
+
+def phase_sweep(tmp: str) -> dict:
+    """``sweep.main``: the lock driver (``--param so3``) over a two-point lr
+    grid, one subprocess a point on the card, into a temporary ``--out``;
+    both runs exit 0, ``summary.json`` ranks both by their mean loss, and
+    the committed ``sweeps/`` is untouched.  The runs' launches happen in
+    their own processes; this process's counts are returned."""
+    igso3_cuda.launches = mmd_cuda.launches = 0
+    before = tree_hash("sweeps")
+    out = os.path.join(tmp, "sweep")
+    t0 = time.perf_counter()
+    summary = sweep.main(["lock", "--grid", json.dumps(SWEEP["grid"]), "--steps",
+                          str(SWEEP["steps"]), "--out", out, "--", "--param", "so3",
+                          "--print-every", str(SWEEP["print_every"])])
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(out, "summary.json")) as f:
+        on_disk = json.load(f)
+    ranked = on_disk["ranked"]
+    emit("sweep", seconds=seconds, ranked=[{k: r[k] for k in ("tag", "returncode", "value",
+                                                              "rank")} for r in ranked])
+    values = [r["value"] for r in ranked]
+    if (on_disk != summary or len(ranked) != 2 or any(r["returncode"] for r in ranked)
+            or not all(v is not None and math.isfinite(v) for v in values)
+            or values != sorted(values) or [r["rank"] for r in ranked] != [1, 2]):
+        raise AssertionError(f"sweep: summary {on_disk}")
+    if tree_hash("sweeps") != before:
+        raise AssertionError("sweep: the committed sweeps/ changed")
+    return {"igso3_logpdf_score": igso3_cuda.launches,
+            "gaussian_kernel_sum": mmd_cuda.launches}
+
+
+def phase_probe(tmp: str) -> dict:
+    """``probe_protein`` at the headline width on a checkpoint written here
+    (one replayed K = 8 call of the production flags through
+    ``protein.main``): the checkpoint's step restored, all 20 MSEs finite,
+    the zero predictor's shift MSE (a mean of squared unit normals) within
+    0.7-1.3.  Returns each kernel's launches."""
+    igso3_cuda.launches = mmd_cuda.launches = 0
+    ckpt = os.path.join(tmp, "probe_ckpt")
+    n = PROBE["train_steps"]
+    run_captured(protein.main, PROTEIN_ARGV + [
+        "--opt-impl", "fused", "--opt-state-dtype", "bf16", "--steps-per-call", "8",
+        "--steps", str(n), "--print-every", str(n), "--ckpt", ckpt])
+    t0 = time.perf_counter()
+    table, out = run_captured(probe_protein.main, [
+        "--ckpt", ckpt, "--frame-pool", "--cross-depth", str(PROTEIN["cross_depth"]),
+        "--rel-frame", "--equiv-head"])
+    emit("probe", seconds=time.perf_counter() - t0, timesteps=list(probe_protein.TIMESTEPS),
+         rot_model=table[:, 0].tolist(), rot_zero=table[:, 1].tolist(),
+         shift_model=table[:, 2].tolist(), shift_zero=table[:, 3].tolist())
+    if f"ckpt step: {n}" not in out or table.shape != (5, 4) or not np.isfinite(table).all():
+        raise AssertionError(f"probe: step line missing or MSEs not finite: {table}")
+    if not ((table[:, 3] > 0.7) & (table[:, 3] < 1.3)).all():
+        raise AssertionError(f"probe: zero-predictor shift MSEs {table[:, 3]}")
+    return {"igso3_logpdf_score": igso3_cuda.launches,
+            "gaussian_kernel_sum": mmd_cuda.launches}
+
+
 def timed(name: str, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -2172,11 +2256,16 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         moe = timed("moe_aircraft", lambda: phase_moe_aircraft(tmp))
         dp1 = timed("dp_world1", lambda: phase_dp_world1(tmp))
+    bench_launches = timed("bench", phase_bench)
+    with tempfile.TemporaryDirectory() as tmp:
+        timed("sweep", lambda: phase_sweep(tmp))
+        probe = timed("probe", lambda: phase_probe(tmp))
     by_path = {"aircraft": aircraft_launches, "bingham": bing,
                "aircraft_train": air_train, "bingham_train": bing_train,
                "protein": prot, "protein_train": prot_train, "euler_aircraft": euler_air,
                "euler_protein": euler_prot, "so3_toy": toy, "lock": lock_suite,
-               "jigsaw": jig, "diagnostics": diag, "moe_aircraft": moe, "dp_world1": dp1}
+               "jigsaw": jig, "diagnostics": diag, "moe_aircraft": moe, "dp_world1": dp1,
+               "bench": bench_launches, "probe": probe}
     launches = {k: sum(p[k] for p in by_path.values()) for k in aircraft_launches}
     main_n = PATH["batch"]
     tm, big = check["timing"][main_n], check["timing"][2**20]

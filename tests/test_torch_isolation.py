@@ -1,4 +1,4 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package, nor
+"""The port, chip_smoke.py and bench_torch.py import neither JAX nor the JAX package, nor
 matplotlib (the card's machine has none; the figures import it where they
 draw).
 
@@ -6,7 +6,8 @@ A subprocess installs an import hook that refuses ``jax`` (and flax, optax,
 orbax), matplotlib and ``diffusion_extensions_tpu`` by exact name or by the
 ``diffusion_extensions_tpu.`` prefix -- the port's own name,
 ``diffusion_extensions_tpu_torch``, shares the string prefix and must pass.
-It then imports every module of the port and ``chip_smoke.py``.
+It then imports every module of the port, ``chip_smoke.py`` and
+``bench_torch.py``.
 """
 import os
 import subprocess
@@ -34,8 +35,9 @@ for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     names.append(info.name)
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for script in ("chip_smoke", "bench_torch"):
+    spec = importlib.util.spec_from_file_location(script, script + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
@@ -50,10 +52,10 @@ def test_port_and_chip_smoke_import_no_jax():
         timeout=300,
     )
     assert res.returncode == 0, res.stderr
-    # package + ops(8) + processes(6) + models(7) + data(6) + experiments(9) + convert
-    # + train(4) + parallel(2) + viz(5)
+    # package + ops(8) + processes(6) + models(7) + data(6) + experiments(10) + convert
+    # + bench + flops + sweep + train(4) + parallel(2) + viz(5)
     lines = res.stdout.strip().splitlines()
-    assert int(lines[-1]) >= 49
+    assert int(lines[-1]) >= 53
     imported = set(lines[-2].split())
     pkg = "diffusion_extensions_tpu_torch"
     assert {f"{pkg}.train.optim", f"{pkg}.train.state", f"{pkg}.train.loop",
@@ -64,4 +66,5 @@ def test_port_and_chip_smoke_import_no_jax():
             f"{pkg}.models.rot_predict", f"{pkg}.data.synthetic", f"{pkg}.models.coordconv",
             f"{pkg}.data.jigsaw", f"{pkg}.experiments.jigsaw", f"{pkg}.experiments.diagnostics",
             f"{pkg}.experiments.grad_check", f"{pkg}.viz", f"{pkg}.viz.colors", f"{pkg}.viz.mpl",
-            f"{pkg}.viz.obj3d", f"{pkg}.viz.sphere"} <= imported
+            f"{pkg}.viz.obj3d", f"{pkg}.viz.sphere", f"{pkg}.bench", f"{pkg}.flops",
+            f"{pkg}.sweep", f"{pkg}.experiments.probe_protein"} <= imported
