@@ -123,7 +123,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from diffusion_extensions_tpu_torch import bench, sweep
+from diffusion_extensions_tpu_torch import bench, obs, sweep
 from diffusion_extensions_tpu_torch.data.jigsaw import JigsawPuzzle, puzzle_rows
 from diffusion_extensions_tpu_torch.data.pdb import (
     pad_prot_batch,
@@ -288,6 +288,12 @@ def emit(phase: str, **fields) -> None:
 
 def sync() -> None:
     torch.cuda.synchronize()
+
+
+def kernel_launches() -> dict:
+    """Each kernel's launches since the last ``obs.reset()``."""
+    return {"igso3_logpdf_score": obs.counter("ops.igso3.launches"),
+            "gaussian_kernel_sum": obs.counter("ops.mmd.launches")}
 
 
 def time_cuda(fn, iters: int, warmup: int = 10) -> float:
@@ -737,36 +743,35 @@ def phase_path() -> dict:
          forward_tflops=flops / fwd_ms / 1e9, **PATH)
 
     gen = torch.Generator(device=device).manual_seed(1)
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     runs = {}
     with torch.inference_mode():
-        before = igso3_cuda.launches
+        before = obs.counter("ops.igso3.launches")
         t0 = time.perf_counter()
         r_anc = short_process.p_sample_loop(model, gen, (PATH["batch"],), proj)
         sync()
         runs["ancestral"] = dict(seconds=time.perf_counter() - t0, steps=PATH["ancestral_steps"],
-                                 launches=igso3_cuda.launches - before,
+                                 launches=obs.counter("ops.igso3.launches") - before,
                                  **check_rotations("ancestral", r_anc))
 
-        before = igso3_cuda.launches
+        before = obs.counter("ops.igso3.launches")
         t0 = time.perf_counter()
         r_heun = process.pf_sample_loop(model, gen, (PATH["batch"],), PATH["heun_steps"],
                                         proj, method="heun")
         sync()
         runs["pf_heun"] = dict(seconds=time.perf_counter() - t0, steps=PATH["heun_steps"],
-                               launches=igso3_cuda.launches - before,
+                               launches=obs.counter("ops.igso3.launches") - before,
                                **check_rotations("pf_heun", r_heun))
 
         samples = dist.sample(gen, (PATH["log_prob_n"],))
         sync()
-        before = igso3_cuda.launches
+        before = obs.counter("ops.igso3.launches")
         t0 = time.perf_counter()
         lp = dist.log_prob(samples)
         sync()
         runs["log_prob"] = dict(seconds=time.perf_counter() - t0, n=PATH["log_prob_n"],
-                                launches=igso3_cuda.launches - before)
-    total = {"igso3_logpdf_score": igso3_cuda.launches,
-             "gaussian_kernel_sum": mmd_cuda.launches}
+                                launches=obs.counter("ops.igso3.launches") - before)
+    total = kernel_launches()
 
     assert lp.shape == (PATH["log_prob_n"],) and torch.isfinite(lp).all()
     ref = igso3_log_density(rotation_angle(samples), dist.eps)
@@ -790,15 +795,14 @@ def phase_bingham_path() -> dict:
     records into a temporary directory; returns each kernel's launches."""
     if (bingham.SAMPLES, bingham.NET_SAMPLES) != (BINGHAM_N, BINGHAM_N):
         raise AssertionError(f"bingham.SAMPLES = {bingham.SAMPLES}, expected {BINGHAM_N}")
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         rows = bingham.main([BINGHAM_COV, "--test", "--sampler-ab", "--timesteps", "1000",
                              "--out-dir", tmp, "--ckpt", os.path.join(tmp, "none.pt")])
         seconds = time.perf_counter() - t0
         files = sorted(os.listdir(tmp))
-    total = {"igso3_logpdf_score": igso3_cuda.launches,
-             "gaussian_kernel_sum": mmd_cuda.launches}
+    total = kernel_launches()
     rows = rows[BINGHAM_COV]
     for r in rows:
         emit("bingham_run", sampler=r["sampler"], seconds=r["sample_seconds"],
@@ -921,7 +925,7 @@ def exact_resume_check(tmp: str, argv=("--so3",)) -> dict:
 def phase_aircraft_train(fwd_ms: float) -> dict:
     """Aircraft training at full width through ``aircraft.main``; returns
     each kernel's launches in this phase."""
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     steps = TRAIN["warmup"] + TRAIN["timed"]
     base = ["--so3", "--dim", str(PATH["dim"]), "--heads", str(PATH["heads"]),
             "--layers", str(PATH["layers"]), "--batch", str(PATH["batch"]),
@@ -1009,26 +1013,25 @@ def phase_aircraft_train(fwd_ms: float) -> dict:
             raise AssertionError("aircraft_train: no weights to sample from")
     clouds = subsample_points(synthetic_planes(128, seed=2), PATH["samples"], seed=17)
     proj = PointCloudProj(torch.from_numpy(clouds[: PATH["batch"]]).to(device))
-    before = igso3_cuda.launches
+    before = obs.counter("ops.igso3.launches")
     t0 = time.perf_counter()
     with torch.inference_mode():
         rots = process.pf_sample_loop(model, torch.Generator(device=device).manual_seed(3),
                                       (PATH["batch"],), PATH["heun_steps"], proj, method="heun")
     sync()
-    heun = igso3_cuda.launches - before
+    heun = obs.counter("ops.igso3.launches") - before
     emit("aircraft_train", run="pf_heun_on_trained", seconds=time.perf_counter() - t0,
          launches=heun, median_angle=float(rotation_angle(rots).median()),
          **check_rotations("pf_heun_on_trained", rots))
     if heun != 2 * PATH["heun_steps"]:
         raise AssertionError(f"Heun on the trained weights: {heun} IGSO(3) launches")
-    return {"igso3_logpdf_score": igso3_cuda.launches,
-            "gaussian_kernel_sum": mmd_cuda.launches}
+    return kernel_launches()
 
 
 def phase_bingham_train() -> dict:
     """experiments/bingham.py training on the "lcr" preset with the online MMD
     curve, then --test on its checkpoint; returns each kernel's launches."""
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     steps, every = TRAIN["bingham_steps"], TRAIN["bingham_mmd_every"]
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, log = os.path.join(tmp, "ck"), os.path.join(tmp, "log.jsonl")
@@ -1039,7 +1042,7 @@ def phase_bingham_train() -> dict:
                               "--log", log])[BINGHAM_COV]
         sync()
         seconds = time.perf_counter() - t0
-        train_launches = mmd_cuda.launches
+        train_launches = obs.counter("ops.mmd.launches")
         rows = read_jsonl(log)
         # steps/s up to the first evaluation: later rows' clock includes it
         clean = [r for r in rows if r["step"] <= curve[0]["step"]][-1]
@@ -1067,8 +1070,7 @@ def phase_bingham_train() -> dict:
              launches=rec["launches"])
         if "untrained" in out or not np.isfinite(rec["mmd"]):
             raise AssertionError("bingham_train: --test did not evaluate the checkpoint")
-    return {"igso3_logpdf_score": igso3_cuda.launches,
-            "gaussian_kernel_sum": mmd_cuda.launches}
+    return kernel_launches()
 
 
 def small_protein_agreement() -> None:
@@ -1176,7 +1178,7 @@ def phase_protein_path(tmp: str) -> dict:
     del model, x_in
     torch.cuda.empty_cache()
 
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     samples = protein.SAMPLES
     try:
         for name, flags, per_pose, evals, launches in PROTEIN_ROWS:
@@ -1199,8 +1201,7 @@ def phase_protein_path(tmp: str) -> dict:
                                      f"{ {k: v for k, v in rec.items() if k not in ('angles', 'shifts')} }")
     finally:
         protein.SAMPLES = samples
-    total = {"igso3_logpdf_score": igso3_cuda.launches,
-             "gaussian_kernel_sum": mmd_cuda.launches}
+    total = kernel_launches()
     if total["igso3_logpdf_score"] == 0:
         raise AssertionError("the protein path launched no IGSO(3) kernel")
     return total
@@ -1246,7 +1247,7 @@ def protein_exact_resume(tmp: str) -> dict:
 def phase_protein_train(tmp: str) -> dict:
     """Protein training at the headline width through ``protein.main``;
     returns each kernel's launches in this phase."""
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     timed = PROTEIN_TRAIN["timed"]
     production = ["--opt-impl", "fused", "--opt-state-dtype", "bf16"]
     # (name, flags, warm-up steps: 10 at K = 1, two calls at K = 8)
@@ -1316,8 +1317,7 @@ def phase_protein_train(tmp: str) -> dict:
     if latest_step(ckpt) != epochs or len(rows) != epochs or \
             not all(np.isfinite(r["loss"]) for r in rows):
         raise AssertionError(f"protein_train: --epoch-accum rows {rows}")
-    return {"igso3_logpdf_score": igso3_cuda.launches,
-            "gaussian_kernel_sum": mmd_cuda.launches}
+    return kernel_launches()
 
 
 def small_euler_agreement() -> None:
@@ -1434,7 +1434,7 @@ def phase_euler_aircraft(tmp: str) -> dict:
     ``--bf16 --steps-per-call 8`` steps, a fp32 run whose loss must fall,
     and ``--test --euler-init haar`` on its checkpoint (a 1000-step chain
     a shape, gated finite and on SO(3)); returns each kernel's launches."""
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     base = ["--dim", str(PATH["dim"]), "--heads", str(PATH["heads"]), "--layers",
             str(PATH["layers"]), "--batch", str(PATH["batch"]), "--samples", str(PATH["samples"]),
             "--timesteps", str(PATH["timesteps"])]
@@ -1489,8 +1489,7 @@ def phase_euler_aircraft(tmp: str) -> dict:
     if "no checkpoint found" in out or res.shape != (EULER["test_shapes"],) \
             or not np.isfinite(res).all() or "(eul)" not in out:
         raise AssertionError("euler_aircraft: --test did not evaluate the checkpoint")
-    return {"igso3_logpdf_score": igso3_cuda.launches,
-            "gaussian_kernel_sum": mmd_cuda.launches}
+    return kernel_launches()
 
 
 def phase_euler_protein(tmp: str) -> dict:
@@ -1533,7 +1532,7 @@ def phase_euler_protein(tmp: str) -> dict:
     del model, x_in
     torch.cuda.empty_cache()
 
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     steps = 16 + PROTEIN_TRAIN["timed"]
     ckpt, log = os.path.join(tmp, "euler_train"), os.path.join(tmp, "euler_train.jsonl")
     torch.cuda.reset_peak_memory_stats()
@@ -1569,15 +1568,14 @@ def phase_euler_protein(tmp: str) -> dict:
     if not ok:
         raise AssertionError(f"euler_protein --test: "
                              f"{ {k: v for k, v in rec.items() if k not in ('angles', 'shifts')} }")
-    return {"igso3_logpdf_score": igso3_cuda.launches,
-            "gaussian_kernel_sum": mmd_cuda.launches}
+    return kernel_launches()
 
 
 def phase_so3_toy(tmp: str) -> dict:
     """experiments/so3_toy.py: training at K = 16 (one CUDA graph replayed a
     step), then --test with the ancestral, DDIM-50 and probability-flow-50
     samplers over 512 chains; returns each kernel's launches."""
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     ckpt, log, out = (os.path.join(tmp, "toy"), os.path.join(tmp, "toy.jsonl"),
                       os.path.join(tmp, "toy_out"))
     steps = SUITES["toy_steps"]
@@ -1600,15 +1598,14 @@ def phase_so3_toy(tmp: str) -> dict:
         if "untrained" in text or not rec["finite"] or rec["count"] != SUITES["eval_batch"] \
                 or rec["launches"] != 0:
             raise AssertionError(f"so3_toy --test {sampler}: {rec['percentiles']}")
-    return {"igso3_logpdf_score": igso3_cuda.launches,
-            "gaussian_kernel_sum": mmd_cuda.launches}
+    return kernel_launches()
 
 
 def phase_lock(tmp: str) -> dict:
     """experiments/lock.py, both arms: eager steps (the non-finite skip
     waits for the device), then --test over 512 chains; returns each
     kernel's launches."""
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     out = os.path.join(tmp, "lock_out")
     steps = SUITES["lock_steps"]
     for param in ("so3", "euler"):
@@ -1634,8 +1631,7 @@ def phase_lock(tmp: str) -> dict:
     if files != ["torch_lock_euler.json", "torch_lock_samples_euler.npy",
                  "torch_lock_samples_so3.npy", "torch_lock_so3.json"]:
         raise AssertionError(f"lock records: {files}")
-    return {"igso3_logpdf_score": igso3_cuda.launches,
-            "gaussian_kernel_sum": mmd_cuda.launches}
+    return kernel_launches()
 
 
 def small_jigsaw_agreement() -> None:
@@ -1732,7 +1728,7 @@ def phase_jigsaw(tmp: str) -> dict:
     2N steps against N + save + restore + N to the bit, cuDNN determinism
     and its cost, then ``--test`` (the 1000-step chain over 64 samples) on
     the falling run's checkpoint; returns each kernel's launches."""
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     base = ["--batch", str(JIGSAW["batch"]), "--size", str(JIGSAW["size"]), "--timesteps",
             str(JIGSAW["timesteps"])]
     steps = JIGSAW["warmup"] + JIGSAW["timed"]
@@ -1794,8 +1790,7 @@ def phase_jigsaw(tmp: str) -> dict:
     if "untrained" in text or not rec["finite"] or rec["count"] != JIGSAW["eval_batch"] \
             or rec["model_evals"] != JIGSAW["timesteps"]:
         raise AssertionError(f"jigsaw --test: {rec['px']}")
-    return {"igso3_logpdf_score": igso3_cuda.launches,
-            "gaussian_kernel_sum": mmd_cuda.launches}
+    return kernel_launches()
 
 
 def phase_diagnostics(tmp: str) -> dict:
@@ -1804,7 +1799,7 @@ def phase_diagnostics(tmp: str) -> dict:
     loss must halve), and ``IGSO3xR3.log_prob`` over 50,000 poses against
     the CPU's inside kernel 1's gates; no figure.  Returns each kernel's
     launches."""
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     t0 = time.perf_counter()
     rots, shifts = diagnostics.main(["se3-path", "--out-dir", tmp])
     seconds = time.perf_counter() - t0
@@ -1833,11 +1828,11 @@ def phase_diagnostics(tmp: str) -> dict:
                    torch.randn(m, 3, generator=gen, device="cuda"))
     dist = IGSO3xR3.create(eps, mean=mean, shift_scale=75.0, device="cuda")
     value = dist.sample(gen)
-    launches0 = igso3_cuda.launches
+    launches0 = obs.counter("ops.igso3.launches")
     lp = dist.log_prob(value)
     rot_lp = dist.igso3.log_prob(value.rot)
     sync()
-    launched = igso3_cuda.launches - launches0
+    launched = obs.counter("ops.igso3.launches") - launches0
     cpu = IGSO3xR3.create(eps.cpu(), mean=AffineT(mean.rot.cpu(), mean.shift.cpu()),
                           shift_scale=75.0, device="cpu")
     value_cpu = AffineT(value.rot.cpu(), value.shift.cpu())
@@ -1848,8 +1843,7 @@ def phase_diagnostics(tmp: str) -> dict:
          finite=bool(torch.isfinite(lp).all()))
     if launched != 2 or not (lp_gate <= 1.0 and rot_gate <= 1.0) or not torch.isfinite(lp).all():
         raise AssertionError(f"IGSO3xR3.log_prob: launches {launched}, gates {lp_gate} {rot_gate}")
-    return {"igso3_logpdf_score": igso3_cuda.launches,
-            "gaussian_kernel_sum": mmd_cuda.launches}
+    return kernel_launches()
 
 
 def moe_routes(model: PlaneNet) -> list:
@@ -1942,7 +1936,7 @@ def phase_moe_aircraft(tmp: str) -> dict:
     one-hot dispatch timed beside the scatter one, replayed and resumed
     steps against eager ones to the bit, then ``--test`` over 32 shapes;
     returns each kernel's launches."""
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     base = ["--so3", "--dim", str(PATH["dim"]), "--heads", str(PATH["heads"]), "--layers",
             str(PATH["layers"]), "--batch", str(PATH["batch"]), "--samples", str(PATH["samples"]),
             "--timesteps", str(PATH["timesteps"]), "--moe-experts", str(MOE["experts"])]
@@ -2028,8 +2022,7 @@ def phase_moe_aircraft(tmp: str) -> dict:
     if "no checkpoint found" in out or res.shape != (PATH["batch"],) \
             or not np.isfinite(res).all():
         raise AssertionError("moe_aircraft: --test did not evaluate the checkpoint")
-    return {"igso3_logpdf_score": igso3_cuda.launches,
-            "gaussian_kernel_sum": mmd_cuda.launches}
+    return kernel_launches()
 
 
 def phase_dp_world1(tmp: str) -> dict:
@@ -2046,7 +2039,7 @@ def phase_dp_world1(tmp: str) -> dict:
     kernel's launches."""
     import torch.distributed as dist
 
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     base = ["--so3", "--dim", str(PATH["dim"]), "--heads", str(PATH["heads"]), "--layers",
             str(PATH["layers"]), "--batch", str(PATH["batch"]), "--samples", str(PATH["samples"]),
             "--timesteps", str(PATH["timesteps"])]
@@ -2108,8 +2101,7 @@ def phase_dp_world1(tmp: str) -> dict:
             raise AssertionError(f"dp_world1: --fsdp losses part from the plain ones by {rel}")
     finally:
         dist.destroy_process_group()
-    return {"igso3_logpdf_score": igso3_cuda.launches,
-            "gaussian_kernel_sum": mmd_cuda.launches}
+    return kernel_launches()
 
 
 def phase_bench() -> dict:
@@ -2118,10 +2110,9 @@ def phase_bench() -> dict:
     MMD kernel launched 12 times (by mmd_eval, the only row that runs it),
     the headline's FlopCounterMode count beside 3x the closed-form forward.
     Returns each kernel's launches."""
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     result = bench.main(["--quick"])
-    launches = {"igso3_logpdf_score": igso3_cuda.launches,
-                "gaussian_kernel_sum": mmd_cuda.launches}
+    launches = kernel_launches()
     rows = result["rows"]
     values = {"headline": result["value"], **{
         name: row["steps_per_sec"] if "steps_per_sec" in row else row["seconds"]
@@ -2161,7 +2152,7 @@ def phase_sweep(tmp: str) -> dict:
     both runs exit 0, ``summary.json`` ranks both by their mean loss, and
     the committed ``sweeps/`` is untouched.  The runs' launches happen in
     their own processes; this process's counts are returned."""
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     before = tree_hash("sweeps")
     out = os.path.join(tmp, "sweep")
     t0 = time.perf_counter()
@@ -2181,8 +2172,7 @@ def phase_sweep(tmp: str) -> dict:
         raise AssertionError(f"sweep: summary {on_disk}")
     if tree_hash("sweeps") != before:
         raise AssertionError("sweep: the committed sweeps/ changed")
-    return {"igso3_logpdf_score": igso3_cuda.launches,
-            "gaussian_kernel_sum": mmd_cuda.launches}
+    return kernel_launches()
 
 
 def phase_probe(tmp: str) -> dict:
@@ -2191,7 +2181,7 @@ def phase_probe(tmp: str) -> dict:
     ``protein.main``): the checkpoint's step restored, all 20 MSEs finite,
     the zero predictor's shift MSE (a mean of squared unit normals) within
     0.7-1.3.  Returns each kernel's launches."""
-    igso3_cuda.launches = mmd_cuda.launches = 0
+    obs.reset()
     ckpt = os.path.join(tmp, "probe_ckpt")
     n = PROBE["train_steps"]
     run_captured(protein.main, PROTEIN_ARGV + [
@@ -2208,8 +2198,7 @@ def phase_probe(tmp: str) -> dict:
         raise AssertionError(f"probe: step line missing or MSEs not finite: {table}")
     if not ((table[:, 3] > 0.7) & (table[:, 3] < 1.3)).all():
         raise AssertionError(f"probe: zero-predictor shift MSEs {table[:, 3]}")
-    return {"igso3_logpdf_score": igso3_cuda.launches,
-            "gaussian_kernel_sum": mmd_cuda.launches}
+    return kernel_launches()
 
 
 def timed(name: str, fn):

@@ -43,10 +43,9 @@ import time
 
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
 from ..data.synthetic import BINGHAM_COVS, bingham_dist
 from ..models.rot_predict import RotPredict
-from ..ops import igso3_cuda, mmd_cuda
 from ..ops.metrics import gaussian_kernel_matrix, mmd
 from ..ops.so3 import quat_to_rmat
 from ..parallel.dp import make_dp_train_step
@@ -191,8 +190,8 @@ def rotation_errors(r: torch.Tensor) -> dict:
 
 
 def _launches() -> dict:
-    return {"igso3_logpdf_score": igso3_cuda.launches,
-            "gaussian_kernel_sum": mmd_cuda.launches}
+    return {"igso3_logpdf_score": obs.counter("ops.igso3.launches"),
+            "gaussian_kernel_sum": obs.counter("ops.mmd.launches")}
 
 
 @torch.inference_mode()

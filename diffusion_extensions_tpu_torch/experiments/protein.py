@@ -42,7 +42,7 @@ import warnings
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
 from ..data.pdb import (
     ProtPairDataset,
     move_prots_np,
@@ -53,7 +53,6 @@ from ..data.pdb import (
 )
 from ..models.projections import ProtBatch, ProtProjection
 from ..models.protnet import CONV_IMPLS, ProtNet
-from ..ops import igso3_cuda
 from ..ops.se3 import AffineT
 from ..ops.so3 import euler_to_rmat, rmat_to_aa
 from ..parallel.dp import make_dp_train_step
@@ -303,7 +302,7 @@ def test(args) -> dict:
                          for b in range(0, len(pairs) - len(pairs) % args.batch, args.batch)]
     angles, shifts, sweeps = [], [], []
     orth = det = 0.0
-    seconds, launches0, chains = 0.0, igso3_cuda.launches, 0
+    seconds, launches0, chains = 0.0, obs.counter("ops.igso3.launches"), 0
     for b, idx in enumerate(batch_indices):
         batch = to_device(pad_prot_batch(_augmented(pairs, idx, args, rng), lr, ll), device)
         proj = ProtProjection(batch, se3=args.se3)
@@ -342,7 +341,7 @@ def test(args) -> dict:
         "pf_method": args.pf_method if sampler == "pf" else None,
         "poses": int(len(angles)), "sample_seconds": seconds,
         "model_evals": evals[0] // max(chains, 1),
-        "launches": igso3_cuda.launches - launches0, "sweeps": sweeps,
+        "launches": obs.counter("ops.igso3.launches") - launches0, "sweeps": sweeps,
         "finite": bool(np.isfinite(angles).all() and np.isfinite(shifts).all()),
         "orth_err": orth, "det_err": det,
         "angles": angles.tolist(), "shifts": shifts.tolist(),

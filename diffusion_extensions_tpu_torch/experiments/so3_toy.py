@@ -32,10 +32,9 @@ import time
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
 from ..data.synthetic import sample_two_mode_batch, two_mode_rotations
 from ..models.rot_predict import RotPredict
-from ..ops import igso3_cuda
 from ..ops.metrics import rmat_dist
 from ..ops.so3 import rmat_to_euler
 from ..parallel.dp import make_dp_train_step
@@ -125,7 +124,7 @@ def test(args) -> dict:
         print(f"warning: no checkpoint found at {args.ckpt}; sampling from untrained model")
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)
     shape = (args.eval_batch,)
-    launches0 = igso3_cuda.launches
+    launches0 = obs.counter("ops.igso3.launches")
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
@@ -150,7 +149,7 @@ def test(args) -> dict:
     print("  " + "  ".join(f"{p}%: {v:.4f}" for p, v in zip(PERCENTILES, vals)))
     record = {"sampler": args.sampler, "sampler_steps": args.sampler_steps,
               "count": args.eval_batch, "sample_seconds": dt, "model_evals": n_evals,
-              "launches": igso3_cuda.launches - launches0,
+              "launches": obs.counter("ops.igso3.launches") - launches0,
               "finite": bool(torch.isfinite(samples).all()),
               "percentiles": dict(zip(map(str, PERCENTILES), map(float, vals))),
               "angles": best.tolist()}

@@ -8,7 +8,9 @@ PyTorch's current stream.
 
 ``igso3_logpdf_score(t, sigma)`` takes the plain PyTorch version
 (``igso3_logpdf_score_ref``) only for tensors on the CPU.  A CUDA tensor
-launches the kernel or raises.  ``launches`` counts kernel launches.
+launches the kernel or raises.  The counter ``ops.igso3.launches``
+(``obs.counter``) counts kernel launches; a launch inside a captured
+CUDA graph counts once, at capture.
 
 What the wrapper does around the launch is plain Python that runs on the
 CPU too: ``plan_operands`` picks a stride (0 or 1) for ``t`` and ``sigma`` so
@@ -26,6 +28,7 @@ import math
 
 import torch
 
+from .. import obs
 from ._build import CSRC, build_library
 
 __all__ = ["igso3_logpdf_score", "igso3_logpdf_score_ref", "plan_operands", "alloc_outputs",
@@ -33,7 +36,6 @@ __all__ = ["igso3_logpdf_score", "igso3_logpdf_score_ref", "plan_operands", "all
 
 SOURCE = CSRC / "igso3_logpdf_score.cu"
 
-launches = 0  # kernel launches since import (or the caller's last reset)
 build_log = ""  # nvcc's output of the last build made in this process
 library_path = None  # the built shared library, once build() has run
 _fn = None
@@ -183,7 +185,6 @@ def igso3_logpdf_score(t: torch.Tensor, sigma: torch.Tensor):
     No gradient is defined (the JAX package's kernel has none either): an
     input that requires grad raises instead of coming back cut from the
     graph."""
-    global launches
     if torch.is_grad_enabled() and (t.requires_grad or sigma.requires_grad):
         raise RuntimeError(
             "igso3_logpdf_score defines no gradient: call it under torch.no_grad() "
@@ -216,5 +217,5 @@ def igso3_logpdf_score(t: torch.Tensor, sigma: torch.Tensor):
             err = fn(*args)
     if err != 0:
         raise RuntimeError(f"igso3_logpdf_score kernel launch failed: cudaError {err}")
-    launches += 1
+    obs.count("ops.igso3.launches")
     return logf, score

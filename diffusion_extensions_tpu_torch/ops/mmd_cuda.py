@@ -9,8 +9,10 @@ and it is called through ``ctypes`` on PyTorch's current stream.
 
 ``gaussian_kernel_sum(x, y)`` takes the plain PyTorch version
 (``gaussian_kernel_sum_ref``) only when both inputs are CPU tensors.  A CUDA
-input launches the kernel or raises.  ``launches`` counts kernel launches
-(one per sum: the tile pass and its fixed-order reduction of the partials).
+input launches the kernel or raises.  The counter ``ops.mmd.launches``
+(``obs.counter``) counts kernel launches (one per sum: the tile pass and
+its fixed-order reduction of the partials); a launch inside a captured
+CUDA graph counts once, at capture.
 
 The plain version's pairwise geodesic angle comes from bilinear forms of the
 rotation entries, never from (N, M, 3, 3) relative rotations: for
@@ -33,6 +35,7 @@ from typing import Callable
 
 import torch
 
+from .. import obs
 from ._build import CSRC, build_library
 
 __all__ = [
@@ -51,7 +54,6 @@ __all__ = [
 
 SOURCE = CSRC / "gaussian_kernel_sum.cu"
 
-launches = 0  # kernel launches since import (or the caller's last reset)
 build_log = ""  # nvcc's output of the last build made in this process
 library_path = None  # the built shared library, once build() has run
 _lib = None
@@ -222,7 +224,6 @@ def gaussian_kernel_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     CUDA inputs the kernel.  No gradient is defined (the JAX package's
     kernel has none either): an input that requires grad raises instead of
     coming back cut from the graph."""
-    global launches
     if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
         raise RuntimeError(
             "gaussian_kernel_sum defines no gradient: call it under torch.no_grad() "
@@ -244,7 +245,7 @@ def gaussian_kernel_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
                                              partials.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"gaussian_kernel_sum kernel launch failed: cudaError {err}")
-    launches += 1
+    obs.count("ops.mmd.launches")
     return out
 
 

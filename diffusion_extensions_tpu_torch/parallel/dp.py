@@ -13,15 +13,25 @@ Where the JAX package fuses K steps of one call with ``lax.scan`` to save
 dispatches, this module captures one step (loss, backward, all-reduce,
 optimizer update) in a CUDA graph and replays it for each sub-step, so a
 step costs the host one copy into the graph's input and one launch.
+
+Spans (``obs``): ``train.step`` around a step's device work, with
+``train.backward`` (the backward and the group's reduce) and
+``train.optimizer`` inside it (the loss function opens its own), and the
+host spans ``train.capture`` and ``train.replay``.  Counters:
+``train.captures``, ``train.replays``, ``train.eager_steps``,
+``train.graph_kernels`` (the kernel, copy and fill nodes of each captured
+step, stamps left out) and ``train.capture_ns``.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
+from .. import obs
 from ..train.optim import Adam, global_norm
 from ..train.state import TrainState
 
@@ -95,27 +105,31 @@ def _map(fn, batch):
 
 
 class _CapturedStep:
-    """One train step (zero the gradients' memory, loss, backward, optimizer
-    update) captured in a CUDA graph over a static copy of ``batch``, with
-    the state's generator registered so that every replay draws anew.  The
-    capture runs nothing: the state is as it was.  ``stream`` is the side
-    stream of the eager step before the first capture: the backward pass
-    accumulates gradients on the stream that first did.  A step that cannot
-    be captured raises from here."""
+    """One train step (the gradients' memory zeroed, then ``body(generator,
+    batch) -> (loss, gradients)``, the eager step's own) captured in a CUDA
+    graph over a static copy of ``batch``, with the state's generator
+    registered so that every replay draws anew.  The capture runs nothing:
+    the state is as it was.  ``stream`` is the side stream of the eager step
+    before the first capture: the backward pass accumulates gradients on
+    the stream that first did.  A step that cannot be captured raises from
+    here."""
 
-    def __init__(self, loss_fn, optimizer, generator, batch, stream, reduce):
-        self.generator = generator
-        self.batch = _map(torch.clone, batch)
-        self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(generator)
-        optimizer.zero_grad()
-        with torch.cuda.graph(self.graph, stream=stream):
-            loss = loss_fn(generator, self.batch)
-            loss.backward()
-            loss = reduce(loss, [p.grad for p in optimizer.params])
-            optimizer.step()
-        self.loss = loss.detach()  # keeps the value's memory, not the autograd graph
-        self.grads = [p.grad for p in optimizer.params]  # the graph's own memory
+    def __init__(self, optimizer, body, generator, batch, stream):
+        t0 = time.perf_counter_ns()
+        with obs.span("train.capture", device=False):
+            self.generator = generator
+            self.batch = _map(torch.clone, batch)
+            self.graph = torch.cuda.CUDAGraph()
+            self.graph.register_generator_state(generator)
+            optimizer.zero_grad()
+            stamps = obs.counter("obs.stamps")
+            with torch.cuda.graph(self.graph, stream=stream):
+                loss, self.grads = body(generator, self.batch)
+                kernels = obs.graph_kernels(stream) - (obs.counter("obs.stamps") - stamps)
+            self.loss = loss.detach()  # keeps the value's memory, not the autograd graph
+        obs.count("train.captures")
+        obs.count("train.graph_kernels", kernels)
+        obs.count("train.capture_ns", time.perf_counter_ns() - t0)
 
     def fits(self, batch) -> bool:
         mine, theirs = _leaves(self.batch), _leaves(batch)
@@ -123,9 +137,11 @@ class _CapturedStep:
             a.shape == b.shape and a.dtype == b.dtype for a, b in zip(mine, theirs))
 
     def __call__(self, batch) -> torch.Tensor:
-        for dst, src in zip(_leaves(self.batch), _leaves(batch)):
-            dst.copy_(src, non_blocking=True)
-        self.graph.replay()
+        with obs.span("train.replay", device=False):
+            for dst, src in zip(_leaves(self.batch), _leaves(batch)):
+                dst.copy_(src, non_blocking=True)
+            self.graph.replay()
+        obs.count("train.replays")
         return self.loss
 
 
@@ -201,17 +217,27 @@ def make_dp_train_step(
             for k, gs in groups.items():
                 metrics[f"grad_norm/{k}"] = global_norm(gs)
 
+    def body(generator, batch):
+        """One step's work, eager or under capture, after the gradients'
+        memory is zeroed: the loss, its backward, the group's reduce, the
+        update (skipped with ``skip_nonfinite`` where the loss or the
+        gradients' norm is not finite, a check that waits for the device).
+        Returns (loss, gradients)."""
+        with obs.span("train.step"):
+            loss = loss_fn(generator, batch)
+            with obs.span("train.backward"):
+                loss.backward()
+                grads = [p.grad for p in params]
+                loss = reduce(loss, grads)
+            if not skip_nonfinite or bool(torch.isfinite(loss) & torch.isfinite(global_norm(grads))):
+                with obs.span("train.optimizer"):
+                    optimizer.step()
+        return loss, grads
+
     def one_step(state: TrainState, batch, want_norms: bool = True):
         optimizer.zero_grad()
-        loss = loss_fn(state.generator, batch)
-        loss.backward()
-        grads = [p.grad for p in params]
-        loss = reduce(loss, grads)
-        ok = True
-        if skip_nonfinite:
-            ok = bool(torch.isfinite(loss) & torch.isfinite(global_norm(grads)))
-        if ok:
-            optimizer.step()
+        loss, grads = body(state.generator, batch)
+        obs.count("train.eager_steps")
         state.step += 1
         metrics = {"loss": loss.detach()}
         if want_norms:
@@ -234,7 +260,7 @@ def make_dp_train_step(
                 with torch.cuda.stream(side[0]):
                     out = one_step(state, batch, want_norms)
                 torch.cuda.current_stream().wait_stream(side[0])
-            graph = _CapturedStep(loss_fn, optimizer, state.generator, batch, side[0], reduce)
+            graph = _CapturedStep(optimizer, body, state.generator, batch, side[0])
             captured.append(graph)
             if out is not None:
                 return out

@@ -22,6 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import obs
 from ..ops.igso3 import IGSO3Table, igso3_score_vec
 from ..ops.se3 import AffineGrad, AffineT, se3_scale
 from ..ops.so3 import exp_skewvec, haar_rotations, log_rmat_vec, orthogonalise, rmul, so3_scale
@@ -331,28 +332,32 @@ class SE3Diffusion:
                  noise: AffineT | None = None):
         """grad_mse: the MSE of the predicted shift against noise.shift /
         (eps_t shift_scale) plus that of the predicted rot_g against
-        log(noise.rot) / eps_t.  ``noise`` is drawn from ``generator``
-        unless given; it carries no gradient."""
-        eps = extract(self.schedule.sqrt_one_minus_alphas_cumprod, t, 1)
-        if noise is None:
-            noise = self.sample_noise(generator, t)
-        noise = AffineT(noise.rot.detach(), noise.shift.detach())
-        x_noisy = self.q_sample(x_start, t, noise)
-        x_in = projection(x_noisy) if projection is not None else x_noisy
-        x_recon: AffineGrad = denoise_fn(x_in, t)
-        descaled_shift = noise.shift / (eps * self.shift_scale)
-        descaled_rot = log_rmat_vec(noise.rot) / eps
-        loss_shift = torch.mean((x_recon.shift_g - descaled_shift) ** 2)
-        loss_rot = torch.mean((x_recon.rot_g - descaled_rot) ** 2)
-        return loss_shift + loss_rot
+        log(noise.rot) / eps_t.  ``t`` is drawn uniform on [0, T) from
+        ``generator`` when None, ``noise`` unless given; it carries no
+        gradient.  Spans: ``process.noise`` (the draws, q_sample, the
+        projection), then ``model.forward`` (the model and the loss)."""
+        with obs.span("process.noise"):
+            if t is None:
+                t = torch.randint(0, self.num_timesteps, (len(x_start.shift),),
+                                  generator=generator, device=self.device)
+            eps = extract(self.schedule.sqrt_one_minus_alphas_cumprod, t, 1)
+            if noise is None:
+                noise = self.sample_noise(generator, t)
+            noise = AffineT(noise.rot.detach(), noise.shift.detach())
+            x_noisy = self.q_sample(x_start, t, noise)
+            x_in = projection(x_noisy) if projection is not None else x_noisy
+        with obs.span("model.forward"):
+            x_recon: AffineGrad = denoise_fn(x_in, t)
+            descaled_shift = noise.shift / (eps * self.shift_scale)
+            descaled_rot = log_rmat_vec(noise.rot) / eps
+            loss_shift = torch.mean((x_recon.shift_g - descaled_shift) ** 2)
+            loss_rot = torch.mean((x_recon.rot_g - descaled_rot) ** 2)
+            return loss_shift + loss_rot
 
     def loss(self, denoise_fn, generator, x_start: AffineT, projection=None, t=None,
              noise=None):
         """``p_losses`` at ``t`` uniform on [0, T), drawn from ``generator``
         unless given."""
-        if t is None:
-            t = torch.randint(0, self.num_timesteps, (len(x_start.shift),),
-                              generator=generator, device=self.device)
         return self.p_losses(denoise_fn, generator, x_start, t, projection, noise)
 
 

@@ -17,6 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import obs
 from ..ops.igso3 import IGSO3Table, igso3_score_vec
 from ..ops.metrics import rmat_dist
 from ..ops.so3 import (
@@ -399,32 +400,35 @@ class SO3Diffusion:
 
     # -- training --------------------------------------------------------
     def p_losses(self, denoise_fn, generator, x_start, t, projection=None, noise=None):
-        """The training loss at timesteps ``t``: "skewvec" is the MSE of the
-        model's output against log(noise) / eps_t, "prevstep" the squared
+        """The training loss at timesteps ``t`` (uniform on [0, T), drawn
+        from ``generator``, when None): "skewvec" is the MSE of the model's
+        output against log(noise) / eps_t, "prevstep" the squared
         ``rmat_dist`` of its output rotation to x_noisy^T posterior_mean.
         ``noise`` (B, 3, 3) is drawn from ``generator`` unless given; it
-        carries no gradient."""
-        eps = extract(self.schedule.sqrt_one_minus_alphas_cumprod, t)
-        if noise is None:
-            noise = self.sample_noise(generator, t)
-        noise = noise.detach()
-        x_noisy = self.q_sample(x_start, t, noise)
-        x_in = projection(x_noisy) if projection is not None else x_noisy
-        x_recon = denoise_fn(x_in, t)
-
-        if self.loss_type == "skewvec":
-            descaled_noise = log_rmat_vec(noise) / eps[..., None]
-            return torch.mean((x_recon - descaled_noise) ** 2)
-        posterior_mean, _, _ = self.q_posterior(x_start, x_noisy, t)
-        step = rmul(x_noisy.transpose(-1, -2), posterior_mean)
-        return torch.mean(rmat_dist(x_recon, step) ** 2)
+        carries no gradient.  Spans: ``process.noise`` (the draws, q_sample,
+        the projection), then ``model.forward`` (the model and the loss)."""
+        with obs.span("process.noise"):
+            if t is None:
+                t = torch.randint(0, self.num_timesteps, (x_start.shape[0],),
+                                  generator=generator, device=self.device)
+            eps = extract(self.schedule.sqrt_one_minus_alphas_cumprod, t)
+            if noise is None:
+                noise = self.sample_noise(generator, t)
+            noise = noise.detach()
+            x_noisy = self.q_sample(x_start, t, noise)
+            x_in = projection(x_noisy) if projection is not None else x_noisy
+        with obs.span("model.forward"):
+            x_recon = denoise_fn(x_in, t)
+            if self.loss_type == "skewvec":
+                descaled_noise = log_rmat_vec(noise) / eps[..., None]
+                return torch.mean((x_recon - descaled_noise) ** 2)
+            posterior_mean, _, _ = self.q_posterior(x_start, x_noisy, t)
+            step = rmul(x_noisy.transpose(-1, -2), posterior_mean)
+            return torch.mean(rmat_dist(x_recon, step) ** 2)
 
     def loss(self, denoise_fn, generator, x_start, projection=None, t=None, noise=None):
         """``p_losses`` at ``t`` uniform on [0, T), drawn from ``generator``
         unless given."""
-        if t is None:
-            t = torch.randint(0, self.num_timesteps, (x_start.shape[0],),
-                              generator=generator, device=self.device)
         return self.p_losses(denoise_fn, generator, x_start, t, projection, noise)
 
 

@@ -16,9 +16,16 @@ def trace_window(out_dir: str, start_step: int = 50, num_steps: int = 10):
     """Step-range ``torch.profiler`` capture: returns ``on_step(i)`` to call
     once per training step; writes a Chrome trace of steps
     [start_step, start_step + num_steps) to ``out_dir/trace.json`` (the
-    drivers' ``--profile-dir``)."""
+    drivers' ``--profile-dir``).  Spans (``obs``) are cleared and on from
+    this call, so a step captured after it holds its device stamps and the
+    trace its ``dxt::`` ranges; at the window's end ``obs.snapshot()`` is
+    written to ``out_dir/spans.json`` and spans go off."""
     import torch
 
+    from .. import obs
+
+    obs.reset()
+    obs.enable()
     state = {"prof": None, "done": False}
 
     def on_step(i: int):
@@ -34,6 +41,9 @@ def trace_window(out_dir: str, start_step: int = 50, num_steps: int = 10):
             state["prof"].stop()
             os.makedirs(out_dir, exist_ok=True)
             state["prof"].export_chrome_trace(os.path.join(out_dir, "trace.json"))
+            with open(os.path.join(out_dir, "spans.json"), "w") as f:
+                json.dump(obs.snapshot(), f)
+            obs.disable()
             state["prof"] = None
             state["done"] = True
             print(f"profiler trace written to {out_dir}")

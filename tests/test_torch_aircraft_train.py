@@ -21,6 +21,7 @@ from diffusion_extensions_tpu.models.projections import PointCloudProj as JProj
 from diffusion_extensions_tpu.ops.so3 import log_rmat_vec as j_log_rmat_vec
 from diffusion_extensions_tpu.processes.schedule import extract as j_extract
 from diffusion_extensions_tpu.processes.so3 import ProjectedSO3Diffusion as JProjected
+from diffusion_extensions_tpu_torch import obs
 from diffusion_extensions_tpu_torch.convert import planenet_params_from_flax
 from diffusion_extensions_tpu_torch.data.shapenet import BatchLoader, synthetic_planes
 from diffusion_extensions_tpu_torch.experiments import aircraft
@@ -140,8 +141,9 @@ def test_without_resume_training_starts_from_step_0(tmp_path):
 
 
 def test_profile_dir_and_debug_nans(tmp_path, capsys):
-    """``--profile-dir`` writes a Chrome trace of steps 50-60; ``--debug-nans``
-    runs the steps under ``torch.autograd.set_detect_anomaly``."""
+    """``--profile-dir`` writes a Chrome trace of steps 50-60 and the spans
+    of the run up to its end; ``--debug-nans`` runs the steps under
+    ``torch.autograd.set_detect_anomaly``."""
     prof = tmp_path / "prof"
     state = aircraft.main(SMALL + ["--ckpt", str(tmp_path / "ck"), "--steps", "62", "--no-native",
                                    "--profile-dir", str(prof), "--debug-nans",
@@ -150,6 +152,10 @@ def test_profile_dir_and_debug_nans(tmp_path, capsys):
     assert f"profiler trace written to {prof}" in capsys.readouterr().out
     with open(prof / "trace.json") as f:
         assert json.load(f)["traceEvents"]
+    with open(prof / "spans.json") as f:
+        spans = json.load(f)
+    assert [r[0] for r in spans["host"]].count("train.step") == 60  # eager steps 0-59
+    assert spans["counters"]["train.eager_steps"] == 60 and not obs.enabled()
 
 
 def test_loss_falls_over_200_small_steps(tmp_path):

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from diffusion_extensions_tpu_torch import obs
 from diffusion_extensions_tpu_torch.ops import igso3_cuda, metrics, mmd_cuda
 from diffusion_extensions_tpu_torch.ops.so3 import exp_skewvec
 
@@ -37,10 +38,10 @@ def test_kernel_matches_plain_version(cuda, n):
     """Gates of tests/test_pallas.py: log f rtol/atol 1e-5; score rtol 1e-4,
     atol 5e-4."""
     t, s = _inputs(n, n, cuda)
-    before = igso3_cuda.launches
+    before = obs.counter("ops.igso3.launches")
     logf, score = igso3_cuda.igso3_logpdf_score(t, s)
     torch.cuda.synchronize()
-    assert igso3_cuda.launches == before + 1
+    assert obs.counter("ops.igso3.launches") == before + 1
     ref_logf, ref_score = igso3_cuda.igso3_logpdf_score_ref(t, s)
     torch.testing.assert_close(logf, ref_logf, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(score, ref_score, rtol=1e-4, atol=5e-4)
@@ -95,9 +96,9 @@ def test_kernel_reads_a_one_value_sigma_in_place(cuda, sigma_shape):
     _, t_arg, t_stride, sigma_arg, sigma_stride = igso3_cuda.plan_operands(t, sigma)
     assert (t_stride, sigma_stride) == (1, 0)
     assert t_arg is t and sigma_arg is sigma
-    before = igso3_cuda.launches
+    before = obs.counter("ops.igso3.launches")
     logf, score = igso3_cuda.igso3_logpdf_score(t, sigma)
-    assert igso3_cuda.launches == before + 1
+    assert obs.counter("ops.igso3.launches") == before + 1
     assert logf.shape == t.shape and score.shape == t.shape
     full_logf, full_score = igso3_cuda.igso3_logpdf_score(t, sigma.expand(t.shape).contiguous())
     assert torch.equal(logf, full_logf) and torch.equal(score, full_score)
@@ -167,10 +168,10 @@ def test_heun_sampler_launches_kernel_twice_per_step(cuda):
     model = PlaneNet(dim=64, heads=4, layers=1).to(cuda).eval()
     proc = ProjectedSO3Diffusion(50, device=cuda)
     proj = PointCloudProj(torch.randn(4, 32, 3, device=cuda))
-    before = igso3_cuda.launches
+    before = obs.counter("ops.igso3.launches")
     with torch.inference_mode():
         out = proc.pf_sample_loop(model, None, (4,), 7, proj, method="heun")
-    assert igso3_cuda.launches == before + 14
+    assert obs.counter("ops.igso3.launches") == before + 14
     assert torch.isfinite(out).all()
 
 
@@ -184,10 +185,10 @@ def test_mmd_kernel_matches_plain_version(cuda, n, m):
     """Gate of tests/test_pallas.py: rtol 1e-4 on the sum, on the card and
     against the plain version on the CPU; 257 x 130 is the masking case."""
     x, y = _rots(n, n, cuda), _rots(m, m + 1, cuda, 0.3)
-    before = mmd_cuda.launches
+    before = obs.counter("ops.mmd.launches")
     got = mmd_cuda.gaussian_kernel_sum(x, y)
     torch.cuda.synchronize()
-    assert mmd_cuda.launches == before + 1
+    assert obs.counter("ops.mmd.launches") == before + 1
     assert got.shape == () and got.device == x.device
     torch.testing.assert_close(got, mmd_cuda.gaussian_kernel_sum_ref(x, y), rtol=1e-4, atol=0)
     ref_cpu = mmd_cuda.gaussian_kernel_sum_ref(x.cpu(), y.cpu())
@@ -258,9 +259,9 @@ def test_mmd_on_the_card_goes_through_the_kernel(cuda):
     """metrics.mmd with the Gaussian kernel: 3 launches whatever chunksize
     says; rtol 1e-3 / atol 1e-5 against the plain MMD on the CPU."""
     x, y = _rots(3000, 9, cuda), _rots(2500, 10, cuda, 0.4)
-    before = mmd_cuda.launches
+    before = obs.counter("ops.mmd.launches")
     got = metrics.mmd(x, y, metrics.gaussian_kernel_matrix, chunksize=1000)
-    assert mmd_cuda.launches == before + 3
+    assert obs.counter("ops.mmd.launches") == before + 3
     want = metrics.mmd(x.cpu(), y.cpu(), metrics.gaussian_kernel_matrix, chunksize=1000)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-5)
     torch.testing.assert_close(mmd_cuda.mmd_cuda(x, y).cpu(), want, rtol=1e-3, atol=1e-5)
@@ -388,11 +389,11 @@ def test_protein_heun_sampler_launches_kernel_twice_per_step(cuda):
 
     state, _, proc = _protein_setup(cuda)
     proj = ProtProjection(to_device(_protein_batches(1)[0], cuda))
-    before = igso3_cuda.launches
+    before = obs.counter("ops.igso3.launches")
     with torch.inference_mode():
         out = proc.pf_sample_loop(state.model.eval(), torch.Generator(device=cuda).manual_seed(0),
                                   (4,), 6, proj, method="heun")
-    assert igso3_cuda.launches == before + 12
+    assert obs.counter("ops.igso3.launches") == before + 12
     assert torch.isfinite(out.rot).all() and torch.isfinite(out.shift).all()
 
 
@@ -454,10 +455,10 @@ def test_igso3xr3_log_prob_on_the_card_launches_kernel_1(cuda):
     eps = torch.rand(50_000, generator=gen, device=cuda) + 0.05
     dist = IGSO3xR3.create(eps, shift_scale=75.0, device=cuda)
     value = dist.sample(gen)
-    before = igso3_cuda.launches
+    before = obs.counter("ops.igso3.launches")
     lp = dist.log_prob(value)
     torch.cuda.synchronize()
-    assert igso3_cuda.launches == before + 1
+    assert obs.counter("ops.igso3.launches") == before + 1
     cpu = IGSO3xR3.create(eps.cpu(), shift_scale=75.0, device="cpu")
     ref = cpu.log_prob(AffineT(value.rot.cpu(), value.shift.cpu()))
     torch.testing.assert_close(lp.cpu(), ref, rtol=1e-5, atol=1e-5)
@@ -559,3 +560,88 @@ def test_nccl_world_of_one_replays_its_all_reduce(cuda):
     assert sum(capturing) == 1
     for name, w in weights[0].items():
         assert torch.equal(w, weights[1][name]), name
+
+
+@pytest.fixture
+def spans(cuda):
+    """Spans on the card for one test, then off and cleared."""
+    obs.reset()
+    yield cuda
+    obs.disable()
+    obs.reset()
+
+
+def _aircraft_calls(cuda, calls: int, on: bool, profile_last: bool = False):
+    """``calls`` K = 8 calls of a small bf16 aircraft step (spans on or
+    off from the build on): the losses, the weights, the counters after the
+    first call, a snapshot of the last call alone and, with
+    ``profile_last``, the profiler's device kernels in it."""
+    from diffusion_extensions_tpu_torch.experiments import aircraft
+    from diffusion_extensions_tpu_torch.parallel.dp import make_dp_train_step
+    from diffusion_extensions_tpu_torch.train.optim import make_optimizer
+    from diffusion_extensions_tpu_torch.train.state import TrainState
+
+    if on:
+        obs.enable(cuda)
+    args = aircraft.parse_args(["--so3", "--bf16", "--dim", "128", "--layers", "2",
+                                "--timesteps", "100"])
+    batches = torch.randn(calls, 8, 8, 64, 3, generator=torch.Generator().manual_seed(0)).to(cuda)
+    model, process = aircraft.build(args, cuda)
+    opt = make_optimizer(model.named_parameters(), 1e-3)
+    step = make_dp_train_step(aircraft.make_loss_fn(model, process), model, opt, steps_per_call=8)
+    state = TrainState(model, opt, torch.Generator(device=cuda).manual_seed(1))
+    losses, counters, kernels = [], None, None
+    for i in range(calls):
+        if i == calls - 1:
+            torch.cuda.synchronize()
+            counters = obs.snapshot()["counters"]
+            obs.reset()
+        if profile_last and i == calls - 1:
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                state, m = step(state, batches[i])
+                torch.cuda.synchronize()
+            kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not e.name.startswith("dxt::")]
+        else:
+            state, m = step(state, batches[i])
+        losses.append(m["loss"].clone())
+    snap = obs.snapshot()
+    return losses, [p.detach().clone() for p in model.parameters()], counters, snap, kernels
+
+
+def test_replayed_steps_stamp_a_row_each_in_order(spans):
+    """Spans on: one K = 8 call of replays writes 8 rows, each with the
+    four phases in order, positive and covering at least 98% of the step,
+    and the losses and weights are those of the same steps with spans off."""
+    off_losses, off_params, off_counters, _, _ = _aircraft_calls(spans, 2, on=False)
+    obs.reset()
+    on_losses, on_params, counters, snap, _ = _aircraft_calls(spans, 2, on=True)
+    for a, b in zip(off_losses + off_params, on_losses + on_params):
+        assert torch.equal(a, b)
+    assert off_counters["train.graph_kernels"] == counters["train.graph_kernels"] > 0
+    assert counters["train.captures"] == 1 and counters["train.eager_steps"] == 1
+    assert counters["train.replays"] == 7
+    dev = snap["device"]
+    assert dev["rows"] == 8 and dev["dropped"] == 0
+    phases = ["process.noise", "model.forward", "train.backward", "train.optimizer"]
+    s = {n: dev["spans"][n]["start"] for n in ["train.step", *phases]}
+    e = {n: dev["spans"][n]["end"] for n in ["train.step", *phases]}
+    for r in range(8):
+        chain = [s["train.step"][r]] + [t for n in phases for t in (s[n][r], e[n][r])] + [e["train.step"][r]]
+        assert chain == sorted(chain) and all(e[n][r] > s[n][r] for n in phases)
+        covered = sum(e[n][r] - s[n][r] for n in phases)
+        assert covered >= 0.98 * (e["train.step"][r] - s["train.step"][r])
+    assert len(obs.gaps_us(snap)) == 7 and len(obs.host_ns(snap, "train.replay")) == 8
+
+
+def test_graph_kernels_counts_the_replayed_kernels(spans):
+    """``train.graph_kernels`` (read from the graph at capture, stamps left
+    out) equals the device operations the profiler sees a replay, less the
+    stamps and the four a replay runs outside its graph: the copy into the
+    static batch, the loss's clone and the two fills of the generator's
+    seed and offset."""
+    _, _, counters, _, kernels = _aircraft_calls(spans, 2, on=True, profile_last=True)
+    stamps = sum("obs_stamp" in k for k in kernels)
+    assert stamps == 8 * 6
+    assert len(kernels) - stamps == 8 * (counters["train.graph_kernels"] + 4)

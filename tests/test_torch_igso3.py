@@ -16,6 +16,7 @@ import torch
 from diffusion_extensions_tpu.ops import igso3 as jig
 from diffusion_extensions_tpu.ops import so3 as jso3
 from diffusion_extensions_tpu.ops.igso3_pallas import igso3_logpdf_score_pallas
+from diffusion_extensions_tpu_torch import obs
 from diffusion_extensions_tpu_torch.ops import igso3 as tig
 from diffusion_extensions_tpu_torch.ops import igso3_cuda
 from conftest import require_golden
@@ -60,7 +61,7 @@ def test_logpdf_score_ref_matches_jax_and_pallas(n):
 
 
 def test_wrapper_broadcasts_and_stays_plain_on_cpu():
-    before = igso3_cuda.launches
+    before = obs.counter("ops.igso3.launches")
     t = torch.linspace(0.1, 3.0, 7).reshape(7, 1)
     logf, score = igso3_cuda.igso3_logpdf_score(t, torch.tensor([0.5]))
     assert logf.shape == (7, 1) and score.shape == (7, 1)
@@ -70,7 +71,7 @@ def test_wrapper_broadcasts_and_stays_plain_on_cpu():
     np.testing.assert_allclose(logf, np.asarray(p_logf), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(score, np.asarray(p_score), rtol=1e-4, atol=5e-4)
     # the plain path neither builds nor launches the kernel
-    assert igso3_cuda.launches == before == 0
+    assert obs.counter("ops.igso3.launches") == before == 0
     assert igso3_cuda._fn is None
 
 
@@ -89,8 +90,9 @@ def test_module_imports_without_nvcc_or_triton():
         "            raise ImportError(name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import os; os.environ['PATH'] = '/nonexistent'\n"
+        "from diffusion_extensions_tpu_torch import obs\n"
         "from diffusion_extensions_tpu_torch.ops import igso3_cuda, igso3\n"
-        "assert igso3_cuda._fn is None and igso3_cuda.launches == 0\n"
+        "assert igso3_cuda._fn is None and obs.counter('ops.igso3.launches') == 0\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 

@@ -41,6 +41,7 @@ for script in ("chip_smoke", "bench_torch"):
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
+assert port.obs._launch is None and not port.obs.enabled()  # importing loads no stamp library
 print(" ".join(names))
 print(len(names))
 """
@@ -53,9 +54,9 @@ def test_port_and_chip_smoke_import_no_jax():
     )
     assert res.returncode == 0, res.stderr
     # package + ops(8) + processes(6) + models(7) + data(6) + experiments(10) + convert
-    # + bench + flops + sweep + train(4) + parallel(2) + viz(5)
+    # + bench + flops + obs + sweep + train(4) + parallel(2) + viz(5)
     lines = res.stdout.strip().splitlines()
-    assert int(lines[-1]) >= 53
+    assert int(lines[-1]) >= 54
     imported = set(lines[-2].split())
     pkg = "diffusion_extensions_tpu_torch"
     assert {f"{pkg}.train.optim", f"{pkg}.train.state", f"{pkg}.train.loop",
@@ -67,4 +68,4 @@ def test_port_and_chip_smoke_import_no_jax():
             f"{pkg}.data.jigsaw", f"{pkg}.experiments.jigsaw", f"{pkg}.experiments.diagnostics",
             f"{pkg}.experiments.grad_check", f"{pkg}.viz", f"{pkg}.viz.colors", f"{pkg}.viz.mpl",
             f"{pkg}.viz.obj3d", f"{pkg}.viz.sphere", f"{pkg}.bench", f"{pkg}.flops",
-            f"{pkg}.sweep", f"{pkg}.experiments.probe_protein"} <= imported
+            f"{pkg}.sweep", f"{pkg}.experiments.probe_protein", f"{pkg}.obs"} <= imported
