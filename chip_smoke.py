@@ -6,9 +6,11 @@
 Builds every CUDA kernel of the port from the sources in this checkout (one
 nvcc per source, all started together; prints what ptxas says of each and,
 where cuobjdump is there, the SASS instruction counts), holds each against
-its plain PyTorch version on the card, then drives seventeen paths at full size,
-each with the kernels' launch counts set to 0 just before it and read just
-after:
+its plain PyTorch version on the card (Adam's update at the leaf sets of the
+benchmark's two configurations, timed beside the plain version and, with
+float32 moments, ``torch.optim.Adam(fused=True)``), then drives seventeen
+paths at full size, each with the kernels' launch counts set to 0 just
+before it and read just after:
 
 * the aircraft sampling path (PlaneNet dim 512 / 4 heads / 4 layers, random
   weights from a seed, batch 32 x 256 points, ProjectedSO3Diffusion with
@@ -119,6 +121,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -150,7 +153,7 @@ from diffusion_extensions_tpu_torch.models.planenet import PlaneNet
 from diffusion_extensions_tpu_torch.models.projections import PointCloudProj, ProtProjection
 from diffusion_extensions_tpu_torch.models.protnet import ProtNet
 from diffusion_extensions_tpu_torch.models.rot_predict import RotPredict
-from diffusion_extensions_tpu_torch.ops import _build, igso3_cuda, mmd_cuda
+from diffusion_extensions_tpu_torch.ops import _build, adam_cuda, igso3_cuda, mmd_cuda
 from diffusion_extensions_tpu_torch.ops.igso3 import (
     IGSO3xR3,
     IsotropicGaussianSO3,
@@ -170,6 +173,7 @@ from diffusion_extensions_tpu_torch.processes.euler import ProjectedEulerDiffusi
 from diffusion_extensions_tpu_torch.processes.r3 import ProjectedGaussianDiffusion
 from diffusion_extensions_tpu_torch.processes.se3 import ProjectedSE3Diffusion
 from diffusion_extensions_tpu_torch.processes.so3 import ProjectedSO3Diffusion, SO3Diffusion
+from diffusion_extensions_tpu_torch.train import optim
 from diffusion_extensions_tpu_torch.train.optim import make_optimizer
 from diffusion_extensions_tpu_torch.train.state import (
     TrainState,
@@ -222,6 +226,13 @@ BINGHAM_IGSO3 = {"ancestral_1000": 0, "ddim_50": 0, "ddim_20": 0, "pf_flow_50": 
 # --bf16), seeded init, the driver's 16 synthetic pairs (120 / 60 residues)
 PROTEIN = dict(dim=1024, heads=8, t_depth=12, c_depth=8, cross_depth=2, batch=16,
                timesteps=1000, params=163_077_652, receptor=120, ligand=60)
+# Adam's update kernel at the leaf sets of the benchmark's two configurations:
+# (leaf set, impl, moment dtype).  Bytes an element: p, g, mu and nu read once,
+# p, mu and nu written once
+ADAM_SETS = {"planenet-d512": ("planenet", "optax", "f32"),
+             "protnet-d1024-prod": ("protnet", "fused", "bf16")}
+ADAM_BYTES = {"f32": 28, "bf16": 20}
+ADAM_CHECK_STEPS = 3
 PROTEIN_ARGV = ["--se3", "--bf16", "--dim", "1024", "--heads", "8", "--t_depth", "12",
                 "--c_depth", "8", "--frame-pool", "--cross-depth", "2", "--rel-frame",
                 "--equiv-head", "--batch", "16", "--timesteps", "1000",
@@ -293,7 +304,8 @@ def sync() -> None:
 def kernel_launches() -> dict:
     """Each kernel's launches since the last ``obs.reset()``."""
     return {"igso3_logpdf_score": obs.counter("ops.igso3.launches"),
-            "gaussian_kernel_sum": obs.counter("ops.mmd.launches")}
+            "gaussian_kernel_sum": obs.counter("ops.mmd.launches"),
+            "adam_update": obs.counter("ops.adam.launches")}
 
 
 def time_cuda(fn, iters: int, warmup: int = 10) -> float:
@@ -409,9 +421,10 @@ def phase_device() -> str:
 
 
 def phase_build() -> dict:
-    """Both kernels' nvcc builds, started together; returns each kernel's
+    """The kernels' nvcc builds, started together; returns each kernel's
     SASS instruction counts, or "not available" without cuobjdump."""
-    kernels = {"igso3_logpdf_score": igso3_cuda, "gaussian_kernel_sum": mmd_cuda}
+    kernels = {"igso3_logpdf_score": igso3_cuda, "gaussian_kernel_sum": mmd_cuda,
+               "adam_update": adam_cuda}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         futures = {name: pool.submit(mod.build) for name, mod in kernels.items()}
@@ -429,8 +442,10 @@ def phase_build() -> dict:
 def sass_counts(sass: dict) -> dict:
     """What the kernels line keeps of the SASS: the MMD kernel's inner loop
     per pair (one MUFU.EX2 a pair), the whole of the IGSO(3) kernel (both
-    arithmetic paths), or "not available"."""
-    out = {"gaussian_kernel_sum": "not available", "igso3_logpdf_score": "not available"}
+    arithmetic paths), each Adam kernel's instruction count, or "not
+    available"."""
+    out = {"gaussian_kernel_sum": "not available", "igso3_logpdf_score": "not available",
+           "adam_update": sass_instructions(sass["adam_update"])}
     mmd_fns = sass["gaussian_kernel_sum"]
     if isinstance(mmd_fns, dict):
         for name, fn in mmd_fns.items():
@@ -444,6 +459,13 @@ def sass_counts(sass: dict) -> dict:
             if "igso3_logpdf_score_kernel" in name:
                 out["igso3_logpdf_score"] = {k: v for k, v in fn.items() if k != "loop"}
     return out
+
+
+def sass_instructions(fns) -> dict | str:
+    """Each kernel function's instruction count, or "not available"."""
+    if not isinstance(fns, dict):
+        return "not available"
+    return {name: fn["instructions"] for name, fn in fns.items()}
 
 
 def allocations() -> int:
@@ -647,6 +669,81 @@ def phase_mmd_check() -> dict:
     )
     emit("kernel_time", kernel="gaussian_kernel_sum", **timing)
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, "timing": timing}
+
+
+def adam_leaf_shapes(kind: str) -> list:
+    """The parameter shapes of a benchmark configuration's model (built on
+    the meta device: nothing allocated)."""
+    with torch.device("meta"):
+        if kind == "planenet":
+            model = PlaneNet(dim=PATH["dim"], heads=PATH["heads"], layers=PATH["layers"])
+        else:
+            model = ProtNet(dim=PROTEIN["dim"], heads=PROTEIN["heads"],
+                            t_depth=PROTEIN["t_depth"], c_depth=PROTEIN["c_depth"],
+                            frame_pool=True, cross_depth=PROTEIN["cross_depth"],
+                            rel_frame=True, equiv_head=True, bf16=True)
+    return [p.shape for p in model.parameters()]
+
+
+def phase_adam_check() -> dict:
+    """Adam's update kernel at the leaf sets of the benchmark's two
+    configurations (``ADAM_SETS``): ``ADAM_CHECK_STEPS`` steps of
+    ``Adam.step()`` against the same steps through the plain version, to
+    the bit, one launch a step; then device ms a call (a CUDA graph
+    replayed) of the kernel, of the plain version and, with float32
+    moments, of ``torch.optim.Adam(fused=True)`` as a yardstick the port
+    never calls, and the eager call's ms (host and device)."""
+    out = {}
+    for name, (kind, impl, dtype) in ADAM_SETS.items():
+        shapes = adam_leaf_shapes(kind)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        init = [torch.randn(s, device="cuda", generator=gen) * 0.02 for s in shapes]
+        grads = [torch.randn(s, device="cuda", generator=gen) * 1e-3 for s in shapes]
+        mine = [(f"w{i}", torch.nn.Parameter(w.clone())) for i, w in enumerate(init)]
+        ref = [(f"w{i}", torch.nn.Parameter(w)) for i, w in enumerate(init)]
+        kernel = make_optimizer(mine, 1e-4, impl=impl, state_dtype=dtype)
+        plain = make_optimizer(ref, 1e-4, impl=impl, state_dtype=dtype)
+        for (_, p), (_, q), g in zip(mine, ref, grads):
+            p.grad, q.grad = g, g
+        obs.reset()
+        for _ in range(ADAM_CHECK_STEPS):
+            kernel.step()
+            with mock.patch.object(optim, "adam_update", adam_cuda.adam_update_ref):
+                plain.step()
+        sync()
+        launches = obs.counter("ops.adam.launches")
+        same = all(torch.equal(p, q) for (_, p), (_, q) in zip(mine, ref)) and all(
+            torch.equal(a, b) for a, b in zip(kernel.mu + kernel.nu, plain.mu + plain.nu))
+        emit("kernel_check", kernel="adam_update", case=name, impl=impl, state_dtype=dtype,
+             steps=ADAM_CHECK_STEPS, launches=launches, bit_identical=same)
+        if launches != ADAM_CHECK_STEPS or not same:
+            raise AssertionError(f"adam_update {name}: {launches} launches in "
+                                 f"{ADAM_CHECK_STEPS} steps, bit-identical {same}")
+
+        ps, qs = [p.detach() for _, p in mine], [q.detach() for _, q in ref]
+        scalars = [torch.tensor(v, device="cuda") for v in (1e-4, 0.1, 1e-3)]
+        kw = dict(impl=impl, b1=0.9, b2=0.999, eps=1e-8, clip=0.0)
+        def run():
+            adam_cuda.adam_update(ps, grads, kernel.mu, kernel.nu, *scalars, None, **kw)
+
+        def run_plain():
+            adam_cuda.adam_update_ref(qs, grads, plain.mu, plain.nu, *scalars, None, **kw)
+
+        n = sum(p.numel() for p in ps)
+        bound_ms = ADAM_BYTES[dtype] * n / HBM_BYTES_PER_S * 1e3
+        timing = dict(leaves=len(shapes), n=n, impl=impl, state_dtype=dtype,
+                      ms=time_graph(run), plain_ms=time_graph(run_plain, reps=10),
+                      call_ms=time_cuda(run, 50), plain_call_ms=time_cuda(run_plain, 10, warmup=2),
+                      bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+        if dtype == "f32":
+            lib = torch.optim.Adam([q for _, q in ref], lr=1e-4, fused=True, capturable=True)
+            timing["library_ms"] = time_graph(lib.step)
+        timing["roofline_pct"] = 100.0 * bound_ms / timing["ms"]
+        emit("kernel_time", kernel="adam_update", set=name, **timing)
+        out[name] = timing
+        del kernel, plain, mine, ref, init, grads, ps, qs
+        torch.cuda.empty_cache()
+    return out
 
 
 def small_cpu_agreement() -> None:
@@ -2213,13 +2310,14 @@ def main() -> None:
     sass = sass_counts(timed("build", phase_build))
     check = timed("kernel_check_igso3", phase_kernel_check)
     mmd_check = timed("kernel_check_mmd", phase_mmd_check)
+    adam = timed("kernel_check_adam", phase_adam_check)
     timed("small_agreement_aircraft", small_cpu_agreement)
     timed("small_agreement_bingham", small_bingham_agreement)
     timed("small_agreement_train", small_train_agreement)
     aircraft_launches, fwd_ms = timed("aircraft_path", phase_path)
     bing = timed("bingham_path", phase_bingham_path)
-    for name, n in bing.items():
-        if n == 0:
+    for name in ("igso3_logpdf_score", "gaussian_kernel_sum"):
+        if bing[name] == 0:
             raise AssertionError(f"the Bingham path launched no {name} kernel")
     air_train = timed("aircraft_train", lambda: phase_aircraft_train(fwd_ms))
     bing_train = timed("bingham_train", phase_bingham_train)
@@ -2300,8 +2398,26 @@ def main() -> None:
         "bound_by": mt["bound_by"], "library_ms": None, "n": mt["n"], "m": mt["m"],
         "max_rel_err": mmd_check["max_rel_err"], "pass": True,
         "sass_per_pair": sass["gaussian_kernel_sum"],
+    }, {
+        "name": "adam_update",
+        "route": "cuda",
+        "source": "diffusion_extensions_tpu_torch/csrc/adam_update.cu",
+        "replaces": None,
+        "launches": launches["adam_update"],
+        "launches_by_path": {p: n["adam_update"] for p, n in by_path.items()},
+        "max_abs_err": 0.0, "pass": True,
+        **{f"{k}_{name}": v for name, row in adam.items() for k, v in row.items()
+           if k in ("ms", "plain_ms", "library_ms", "bound_ms", "call_ms", "roofline_pct")},
+        "sass_instructions": sass["adam_update"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
+    # every path that trains on the card updates through Adam's kernel
+    trains = ("aircraft_train", "bingham_train", "protein_train", "euler_aircraft",
+              "euler_protein", "so3_toy", "lock", "jigsaw", "moe_aircraft", "dp_world1", "bench",
+              "probe")
+    missing = [p for p in trains if by_path[p]["adam_update"] == 0]
+    if missing:
+        raise AssertionError(f"paths that trained without launching adam_update: {missing}")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

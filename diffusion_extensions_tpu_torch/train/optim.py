@@ -3,20 +3,26 @@
 
 Adam with two opt-in stabilizers, global-norm gradient clipping (``--clip``)
 and cosine decay of the learning rate to ``final_frac * lr`` over
-``--steps`` (``--lr-schedule cosine``), in two implementations of the same
-arithmetic:
+``--steps`` (``--lr-schedule cosine``), in two orders of the same
+arithmetic (``impl``):
 
 * ``impl="optax"`` (the flag value keeps the JAX package's name): the plain
-  chain, one pass per transformation and per leaf, rounding as
-  ``optax.chain(clip_by_global_norm(clip), adam(lr))`` does: gradients are
-  left alone when their norm is under ``clip`` and scaled by ``clip / norm``
-  otherwise; ``(mu / bc1) / (sqrt(nu / bc2) + eps) * -lr``;
-* ``impl="fused"``: the one-expression-per-leaf update of the JAX package's
-  ``fused_adam`` over all leaves at once with ``torch._foreach_*``: the clip
-  is the scalar ``min(1, clip / max(norm, 1e-12))`` folded into the gradient,
-  the update ``-lr * (mu / bc1) / (sqrt(nu / bc2) + eps)``.
-  ``state_dtype="bf16"`` stores both moments in bf16; they are cast up to
-  float32 before the update and down after it.
+  chain, rounding as ``optax.chain(clip_by_global_norm(clip), adam(lr))``
+  does: gradients are left alone when their norm is under ``clip`` and
+  scaled by ``clip / norm`` otherwise; ``(mu / bc1) / (sqrt(nu / bc2) + eps)
+  * -lr``;
+* ``impl="fused"``: the JAX package's ``fused_adam``, rounding as one
+  ``torch._foreach_*`` sweep over all leaves: the clip is the scalar
+  ``min(1, clip / max(norm, 1e-12))`` folded into the gradient, the update
+  ``-lr * (mu / bc1) / (sqrt(nu / bc2) + eps)``.
+  ``state_dtype="bf16"`` stores both moments in bf16; the update reads and
+  computes them in float32 and rounds them to bf16 at the store.
+
+``step()`` computes the step's scalars here (the learning rate, the count,
+the bias corrections, the clip's norm or scale) and hands the update of
+every leaf to ``ops/adam_cuda.adam_update``: on the card both orders are one
+launch of one hand-written kernel, which differ only in rounding order; on
+the CPU the plain PyTorch version of each order.
 
 Both evaluate the schedule at the pre-increment count (step 0 uses
 ``schedule(0)``) and the bias corrections at the post-increment count.  The
@@ -29,6 +35,8 @@ import math
 from typing import Iterable
 
 import torch
+
+from ..ops.adam_cuda import adam_update
 
 __all__ = ["Adam", "make_optimizer", "add_optim_flags", "global_norm"]
 
@@ -90,45 +98,13 @@ class Adam:
         cf = self.count.to(torch.float32)
         bc1 = 1.0 - self.b1 ** cf
         bc2 = 1.0 - self.b2 ** cf
-        if self.impl == "fused":
-            self._fused(grads, lr_t, bc1, bc2)
-        else:
-            self._chain(grads, lr_t, bc1, bc2)
-
-    def _chain(self, grads, lr_t, bc1, bc2) -> None:
-        b1, b2 = self.b1, self.b2
+        clip_value = None
         if self.clip and self.clip > 0:
             norm = global_norm(grads)
-            under = norm < self.clip
-            grads = [torch.where(under, g, (g / norm) * self.clip) for g in grads]
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            mu.copy_((1.0 - b1) * g + b1 * mu)
-            nu.copy_((1.0 - b2) * (g * g) + b2 * nu)
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            p.add_(update * -lr_t)
-
-    def _fused(self, grads, lr_t, bc1, bc2) -> None:
-        b1, b2 = self.b1, self.b2
-        if self.clip and self.clip > 0:
-            scale = torch.clamp(self.clip / torch.clamp(global_norm(grads), min=1e-12), max=1.0)
-            grads = torch._foreach_mul(grads, scale)
-        compressed = self.state_dtype != torch.float32
-        mu = [m.float() for m in self.mu] if compressed else self.mu
-        nu = [n.float() for n in self.nu] if compressed else self.nu
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, grads, alpha=1.0 - b1)
-        torch._foreach_mul_(nu, b2)
-        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
-        update = torch._foreach_div(mu, bc1)
-        torch._foreach_mul_(update, -lr_t)
-        denom = torch._foreach_div(nu, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        torch._foreach_div_(update, denom)
-        torch._foreach_add_(self.params, update)
-        if compressed:
-            torch._foreach_copy_(self.mu, mu)
-            torch._foreach_copy_(self.nu, nu)
+            clip_value = (torch.clamp(self.clip / torch.clamp(norm, min=1e-12), max=1.0)
+                          if self.impl == "fused" else norm)
+        adam_update(self.params, grads, self.mu, self.nu, lr_t, bc1, bc2, clip_value,
+                    impl=self.impl, b1=self.b1, b2=self.b2, eps=self.eps, clip=self.clip)
 
     def state_dict(self) -> dict:
         return {"count": self.count.clone(),
@@ -170,10 +146,10 @@ def make_optimizer(
     """Adam over ``params`` (``model.named_parameters()``) with optional
     global-norm clipping and cosine decay of the learning rate.
 
-    ``impl="fused"`` is the same arithmetic in one ``torch._foreach_*`` sweep
-    over all leaves.  ``state_dtype="bf16"`` stores the moments compressed
-    (the update still runs in float32); it needs the fused implementation
-    and is opt-in, never a default."""
+    ``impl="fused"`` is the same arithmetic in the JAX package's
+    ``fused_adam`` order (module docstring).  ``state_dtype="bf16"`` stores
+    the moments compressed (the update still runs in float32); it needs the
+    fused implementation and is opt-in, never a default."""
     if schedule == "cosine":
         if not total_steps:
             raise ValueError("cosine schedule needs total_steps")
@@ -206,8 +182,9 @@ def add_optim_flags(parser) -> None:
     parser.add_argument(
         "--opt-impl", dest="opt_impl", choices=("optax", "fused"),
         default="optax",
-        help="Adam implementation: optax (the plain chain, one pass per "
-             "transformation) or fused (same math, one torch._foreach sweep)",
+        help="Adam's rounding order: optax (the plain chain, one operation "
+             "at a time) or fused (the JAX package's fused_adam); on the card "
+             "both are one kernel launch a step",
     )
     parser.add_argument(
         "--opt-state-dtype", dest="opt_state_dtype",

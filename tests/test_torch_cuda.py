@@ -645,3 +645,154 @@ def test_graph_kernels_counts_the_replayed_kernels(spans):
     stamps = sum("obs_stamp" in k for k in kernels)
     assert stamps == 8 * 6
     assert len(kernels) - stamps == 8 * (counters["train.graph_kernels"] + 4)
+
+
+# Adam's update kernel (ops/adam_cuda.py): leaves of 1, 3, 4095, 4097 and
+# 1,048,577 elements, a leaf of zero gradients, one of 1e-12 gradients, an
+# empty leaf, and one whose parameter and gradient sit one element off a
+# 16-byte boundary (the kernel's element-at-a-time path)
+ADAM_LEAVES = {"one": 1, "three": 3, "below": 4095, "above": 4097, "big": 1_048_577,
+               "zeros": 4096, "tiny": 1000, "empty": 0, "offset": 4098}
+ADAM_STEPS = 20
+
+
+def _adam_params(cuda, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, n in ADAM_LEAVES.items():
+        w = torch.from_numpy(rng.standard_normal(n).astype(np.float32) * 0.05)
+        if name == "offset":
+            buf = torch.zeros(n + 1, device=cuda)
+            buf[1:] = w.to(cuda)
+            out.append((name, torch.nn.Parameter(buf[1:])))
+        else:
+            out.append((name, torch.nn.Parameter(w.to(cuda))))
+    return out
+
+
+def _adam_grads(cuda, step):
+    """Step ``step``'s gradients: their norm crosses 1 both ways over the
+    sequence (every third step is 100x smaller), so a clip at 1.0 both
+    scales and leaves alone."""
+    rng = np.random.default_rng(500 + step)
+    scale = 1e-4 if step % 3 == 0 else 1e-2
+    out = {}
+    for name, n in ADAM_LEAVES.items():
+        g = rng.standard_normal(n).astype(np.float32) * scale
+        if name == "zeros":
+            g[:] = 0.0
+        elif name == "tiny":
+            g *= 1e-12 / scale
+        g = torch.from_numpy(g).to(cuda)
+        if name == "offset":
+            buf = torch.empty(n + 1, device=cuda)
+            buf[1:] = g
+            g = buf[1:]
+        out[name] = g
+    return out
+
+
+def _plain_step(opt, monkeypatch):
+    """``opt.step()`` through the plain version on the card."""
+    from diffusion_extensions_tpu_torch.ops import adam_cuda
+    from diffusion_extensions_tpu_torch.train import optim
+
+    with monkeypatch.context() as m:
+        m.setattr(optim, "adam_update", adam_cuda.adam_update_ref)
+        opt.step()
+
+
+ADAM_CASES = [
+    pytest.param(impl, clip, schedule, dtype, id=f"{impl}-{dtype}-clip{clip}-{schedule}")
+    for impl, dtype in (("optax", "f32"), ("fused", "f32"), ("fused", "bf16"))
+    for clip in (0.0, 1.0) for schedule in ("const", "cosine")]
+
+
+@pytest.mark.parametrize("impl,clip,schedule,state_dtype", ADAM_CASES)
+def test_adam_kernel_matches_plain_version(cuda, monkeypatch, impl, clip, schedule, state_dtype):
+    """Every implementation, moment dtype, clip and schedule the factory
+    takes: 20 steps of the kernel against 20 of the plain version on the
+    card from the same weights and gradients.  The kernel rounds each
+    operation as the plain version's PyTorch kernel does on the card (an
+    explicit round-to-nearest intrinsic each, the fused order's two moment
+    updates as PyTorch's one fused multiply-add each, bf16 moments rounded
+    to nearest even at the store), so weights and moments agree to the bit
+    after every step; one launch a step."""
+    from diffusion_extensions_tpu_torch.train.optim import make_optimizer
+
+    kw = dict(clip=clip, schedule=schedule, total_steps=ADAM_STEPS // 2, impl=impl,
+              state_dtype=state_dtype)
+    mine, ref = _adam_params(cuda, 1), _adam_params(cuda, 1)
+    kernel, plain = make_optimizer(mine, 1e-2, **kw), make_optimizer(ref, 1e-2, **kw)
+    for step in range(ADAM_STEPS):
+        grads = _adam_grads(cuda, step)
+        for (name, p), (_, q) in zip(mine, ref):
+            p.grad, q.grad = grads[name], grads[name].clone()
+        before = obs.counter("ops.adam.launches")
+        kernel.step()
+        assert obs.counter("ops.adam.launches") == before + 1
+        _plain_step(plain, monkeypatch)
+        torch.cuda.synchronize()
+        for (name, p), (_, q) in zip(mine, ref):
+            assert torch.equal(p, q), f"step {step}, leaf {name}"
+        for a, b, name in zip(kernel.mu + kernel.nu, plain.mu + plain.nu, kernel.names * 2):
+            assert a.dtype == b.dtype and torch.equal(a, b), f"step {step}, moment of {name}"
+    assert int(kernel.count) == int(plain.count) == ADAM_STEPS
+    moved = {n: float((p.detach() - q.detach()).abs().max())
+             for (n, p), (_, q) in zip(mine, _adam_params(cuda, 1)) if p.numel()}
+    assert all(moved[n] > 0 for n in ("one", "three", "big", "offset", "tiny"))
+    assert moved["zeros"] == 0.0
+
+
+def test_adam_kernel_splits_a_table_of_many_leaves(cuda, monkeypatch):
+    """More leaves than one launch's table holds (``MAX_LEAVES``): two
+    launches, the same bits as the plain version."""
+    from diffusion_extensions_tpu_torch.ops import adam_cuda
+    from diffusion_extensions_tpu_torch.train.optim import make_optimizer
+
+    rng = np.random.default_rng(7)
+    sizes = rng.integers(0, 3 * adam_cuda.CHUNK, adam_cuda.MAX_LEAVES + 30)
+    inits = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda) for n in sizes]
+    grads = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda) for n in sizes]
+    mine = [(f"w{i}", torch.nn.Parameter(w.clone())) for i, w in enumerate(inits)]
+    ref = [(f"w{i}", torch.nn.Parameter(w.clone())) for i, w in enumerate(inits)]
+    kernel = make_optimizer(mine, 1e-3, impl="fused", state_dtype="bf16", clip=1.0)
+    plain = make_optimizer(ref, 1e-3, impl="fused", state_dtype="bf16", clip=1.0)
+    for (_, p), (_, q), g in zip(mine, ref, grads):
+        p.grad, q.grad = g, g.clone()
+    before = obs.counter("ops.adam.launches")
+    kernel.step()
+    assert obs.counter("ops.adam.launches") == before + 2
+    _plain_step(plain, monkeypatch)
+    torch.cuda.synchronize()
+    for (_, p), (_, q) in zip(mine, ref):
+        assert torch.equal(p, q)
+    for a, b in zip(kernel.mu + kernel.nu, plain.mu + plain.nu):
+        assert torch.equal(a, b)
+
+
+def test_adam_kernel_refuses_leaves_it_cannot_take(cuda):
+    """A bf16 parameter, moments of two dtypes, a leaf that is not dense,
+    a gradient laid out otherwise than its parameter, a leaf on the CPU,
+    bf16 moments in the plain chain's order: each raises, and nothing is
+    launched."""
+    from diffusion_extensions_tpu_torch.ops.adam_cuda import adam_update
+
+    one = torch.ones((), device=cuda)
+    f32 = lambda *s: torch.zeros(*s, device=cuda)  # noqa: E731
+    cases = {
+        "bf16 parameter": ([f32(8).bfloat16()], [f32(8).bfloat16()], [f32(8)], [f32(8)], TypeError),
+        "moment dtypes": ([f32(8)], [f32(8)], [f32(8)], [f32(8).bfloat16()], TypeError),
+        "not dense": ([f32(8, 8)[:, ::2]], [f32(8, 8)[:, ::2]], [f32(8, 8)[:, ::2]],
+                      [f32(8, 8)[:, ::2]], ValueError),
+        "other layout": ([f32(4, 4)], [f32(4, 4).t()], [f32(4, 4)], [f32(4, 4)], ValueError),
+        "on the CPU": ([f32(8)], [torch.zeros(8)], [f32(8)], [f32(8)], ValueError),
+        "bf16 moments in the plain chain": ([f32(8)], [f32(8)], [f32(8).bfloat16()],
+                                            [f32(8).bfloat16()], ValueError),
+    }
+    before = obs.counter("ops.adam.launches")
+    for name, (p, g, m, v, error) in cases.items():
+        with pytest.raises(error):
+            adam_update(p, g, m, v, one, one, one, None, impl="optax", b1=0.9, b2=0.999,
+                        eps=1e-8, clip=0.0)
+    assert obs.counter("ops.adam.launches") == before
