@@ -80,6 +80,11 @@ before it and read just after:
   on the trained weights), the one-hot dispatch timed beside the scatter
   one in turns, replayed and resumed steps against eager ones to the bit,
   then ``--test`` over 32 shapes (1000-step chains, gated on SO(3));
+* the DeepSeek-V2 trunk (``--trunk dsv2lite-ep8``: 1 dense + 4 MoE layers
+  at DeepSeek-V2-Lite's widths, 8 of 64 experts held, 487,890,436
+  parameters) at the dsv2lite-aircraft-train cell's size through
+  ``aircraft.main``: 32 replayed bf16 K = 8 steps, then one profiled call
+  of a fresh step (Adam's kernel once a step, the held experts' rows);
 * the multi-process code at world size 1 over NCCL (a group made in this
   process; the card's machine has one GPU): 16 replayed K = 8 steps through
   the data-parallel all-reduce against the same steps without a group, to
@@ -284,6 +289,10 @@ MOE = dict(experts=4, steps=208, print_every=8)
 # world size 1 over NCCL: replayed K = 8 steps through the all-reduce, eager
 # --fsdp steps
 DP_WORLD1 = dict(steps=16, fsdp_steps=20)
+# the DeepSeek-V2 trunk (--trunk dsv2lite-ep8) at the dsv2lite-aircraft-train
+# cell's size: replayed bf16 K = 8 steps through aircraft.main, then one
+# profiled call of a fresh step
+DSV2 = dict(trunk="dsv2lite-ep8", batch=64, samples=256, params=487_890_436, steps=32, print_every=8)
 # bench_torch --quick: the headline and its eleven rows, the kernel-2
 # launches of mmd_eval (one warm-up call and three timed, three sums each)
 BENCH_MEASUREMENTS, BENCH_MMD_LAUNCHES = 12, 12
@@ -2122,6 +2131,72 @@ def phase_moe_aircraft(tmp: str) -> dict:
     return kernel_launches()
 
 
+def phase_dsv2_aircraft(tmp: str) -> dict:
+    """PlaneNet with the DeepSeek-V2 trunk at the dsv2lite-aircraft-train
+    cell's size (DSV2: 1 dense + 4 MoE layers at DeepSeek-V2-Lite's widths,
+    8 of 64 experts held, 64 clouds x 256 points, bf16, fused Adam at lr
+    3e-4) through ``aircraft.main``: DSV2["steps"] replayed K = 8 steps (ms,
+    peak memory, finite losses, the expert fractions), then one call of a
+    fresh K = 8 step under the profiler: Adam's kernel once a step, the
+    device kernels a step and the held experts' rows from the device
+    counters; returns each kernel's launches."""
+    obs.reset()
+    arm = ["--so3", "--trunk", DSV2["trunk"], "--bf16", "--batch", str(DSV2["batch"]), "--samples",
+           str(DSV2["samples"]), "--timesteps", "1000", "--opt-impl", "fused", "--lr", "3e-4",
+           "--steps-per-call", "8"]
+    ckpt, log = os.path.join(tmp, "dsv2"), os.path.join(tmp, "dsv2.jsonl")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, out = run_captured(aircraft.main, arm + ["--steps", str(DSV2["steps"]), "--print-every",
+                                               str(DSV2["print_every"]), "--ckpt", ckpt, "--log", log])
+    sync()
+    seconds = time.perf_counter() - t0
+    rows = read_jsonl(log)
+    params = sum(p.numel() for p in state.model.parameters())
+    launches = kernel_launches()
+    emit("dsv2_aircraft", variant="bf16_k8", steps=DSV2["steps"], params=params,
+         ms_per_step=1e3 / rows[-1]["steps_per_sec"], peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         losses=[r["loss"] for r in rows], test_loss=rows[-1]["test_loss"],
+         expert_frac_max=rows[-1]["expert_frac_max"], seconds=seconds, launches=launches)
+    if params != DSV2["params"] or state.step != DSV2["steps"] \
+            or not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"dsv2_aircraft: {params} parameters, step {state.step}, rows {rows}")
+    del state
+    torch.cuda.empty_cache()
+
+    args = aircraft.parse_args(arm)
+    model, process = aircraft.build(args, torch.device("cuda"))
+    opt = make_optimizer(model.named_parameters(), args.lr, impl="fused")
+    step = make_dp_train_step(aircraft.make_loss_fn(model, process), model, opt, steps_per_call=8)
+    st = TrainState(model, opt, torch.Generator(device="cuda").manual_seed(1))
+    batches = torch.from_numpy(subsample_points(synthetic_planes(8 * DSV2["batch"], seed=3), DSV2["samples"], 5))
+    batches = batches.reshape(8, DSV2["batch"], DSV2["samples"], 3).cuda()
+    st, _ = step(st, batches)  # the eager step, the capture, the replays
+    sync()
+    before = obs.snapshot()["counters"]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        st, m = step(st, batches)
+        sync()
+    after = obs.snapshot()["counters"]
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith("dxt::")]
+    adam_a_step = sum("adam_update" in n for n in names) / 8
+    trunk = model.encoder.cfg
+    rows = after["moe.rows"] - before["moe.rows"]
+    expected = ((trunk.num_hidden_layers - trunk.first_k_dense_replace) * DSV2["batch"] * DSV2["samples"]
+                * trunk.num_experts_per_tok * trunk.experts_held / trunk.n_routed_experts)
+    emit("dsv2_aircraft", run="profiled_call", adam_launches_a_step=adam_a_step,
+         device_ops_a_step=len(names) / 8, graph_kernels=after.get("train.graph_kernels"),
+         moe_kernels_per_layer=after["moe.graph_kernels"] / after["moe.captures"],
+         held_rows_a_step=rows / 8, expected_rows_a_step=expected,
+         load_max_over_mean=(after["moe.rows_max"] - before["moe.rows_max"]) * trunk.experts_held / rows,
+         loss=float(m["loss"]))
+    if adam_a_step != 1 or not np.isfinite(float(m["loss"])):
+        raise AssertionError(f"dsv2_aircraft: adam_update {adam_a_step} a step, loss {float(m['loss'])}")
+    return launches
+
+
 def phase_dp_world1(tmp: str) -> dict:
     """The multi-process code on the card at world size 1 over NCCL (a
     group made in this process): 16 replayed ``--bf16`` K = 8 aircraft
@@ -2342,6 +2417,7 @@ def main() -> None:
     timed("small_agreement_moe", small_moe_agreement)
     with tempfile.TemporaryDirectory() as tmp:
         moe = timed("moe_aircraft", lambda: phase_moe_aircraft(tmp))
+        dsv2 = timed("dsv2_aircraft", lambda: phase_dsv2_aircraft(tmp))
         dp1 = timed("dp_world1", lambda: phase_dp_world1(tmp))
     bench_launches = timed("bench", phase_bench)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2351,7 +2427,8 @@ def main() -> None:
                "aircraft_train": air_train, "bingham_train": bing_train,
                "protein": prot, "protein_train": prot_train, "euler_aircraft": euler_air,
                "euler_protein": euler_prot, "so3_toy": toy, "lock": lock_suite,
-               "jigsaw": jig, "diagnostics": diag, "moe_aircraft": moe, "dp_world1": dp1,
+               "jigsaw": jig, "diagnostics": diag, "moe_aircraft": moe, "dsv2_aircraft": dsv2,
+               "dp_world1": dp1,
                "bench": bench_launches, "probe": probe}
     launches = {k: sum(p[k] for p in by_path.values()) for k in aircraft_launches}
     main_n = PATH["batch"]
@@ -2413,7 +2490,8 @@ def main() -> None:
     print(json.dumps({"kernels": kernels}), flush=True)
     # every path that trains on the card updates through Adam's kernel
     trains = ("aircraft_train", "bingham_train", "protein_train", "euler_aircraft",
-              "euler_protein", "so3_toy", "lock", "jigsaw", "moe_aircraft", "dp_world1", "bench",
+              "euler_protein", "so3_toy", "lock", "jigsaw", "moe_aircraft", "dsv2_aircraft", "dp_world1",
+              "bench",
               "probe")
     missing = [p for p in trains if by_path[p]["adam_update"] == 0]
     if missing:

@@ -19,7 +19,12 @@ checkpoints (weights, optimizer, step, generator) go to the directory
 continues from the newest.  ``--moe-experts E`` swaps every encoder
 layer's feed-forward pair for a Switch MoE (``--moe-dispatch``); the loss
 then adds 0.01 times the load-balance loss, and each logged row the
-experts' token fractions on the validation probe.
+experts' token fractions on the validation probe.  ``--trunk
+dsv2lite-ep8`` takes DeepSeek-V2-Lite's MLA + MoE block in place of the
+encoder (``models/deepseek_v2.py``), with its width, heads, depth (1 dense
++ 4 MoE layers) and held experts (8 of 64, one rank of eight) from the
+trunk, not from ``--dim`` / ``--heads`` / ``--layers``; the loss adds
+0.001 times its balance loss.
 
 Launched by torchrun (or the ``DXT_*`` variables, ``parallel/launch.py``)
 the driver joins the process group: every rank loads the same global
@@ -56,6 +61,7 @@ import torch.distributed as dist
 
 from .. import resolve_device
 from ..data.shapenet import BatchLoader, ShapeNet, synthetic_planes
+from ..models.deepseek_v2 import TRUNKS
 from ..models.planenet import PlaneNet
 from ..models.projections import PointCloudProj
 from ..ops.so3 import euler_to_rmat, haar_rotations, log_rmat_vec, rmat_to_aa, rmat_to_euler
@@ -103,7 +109,8 @@ def build(args, device):
     """(model, process); the model's init is seeded by ``args.seed``."""
     torch.manual_seed(args.seed)
     model = PlaneNet(dim=args.dim, heads=args.heads, layers=args.layers, bf16=args.bf16,
-                     moe_experts=args.moe_experts, moe_dispatch=args.moe_dispatch)
+                     moe_experts=args.moe_experts, moe_dispatch=args.moe_dispatch,
+                     trunk=TRUNKS.get(args.trunk))
     model = model.to(device)
     if args.so3:
         process = ProjectedSO3Diffusion(timesteps=args.timesteps, device=device)
@@ -119,13 +126,16 @@ def true_pos(b: int, so3: bool, device) -> torch.Tensor:
     return torch.zeros((b, 3), device=device)
 
 
-def make_loss_fn(model, process, so3: bool = True, aux_weight: float = AUX_WEIGHT):
+def make_loss_fn(model, process, so3: bool = True, aux_weight: float | None = None):
     """``loss_fn(generator, batch)``: the process's loss of the clean state
     seen through the batch's clouds.  ``batch`` is the clouds (B, N, 3), or
     ``(clouds, t, noise)`` to fix the timesteps and the noise.  With MoE
-    layers, ``aux_weight`` times the mean over the loss's model calls of
-    the load-balance loss (summed over the layers) is added."""
+    layers, ``aux_weight`` (None: the model's ``aux_weight``, else
+    AUX_WEIGHT) times the mean over the loss's model calls of the
+    load-balance loss (summed over the layers) is added."""
     moe = getattr(model, "moe_experts", 0) > 0
+    if aux_weight is None:
+        aux_weight = getattr(model, "aux_weight", AUX_WEIGHT)
 
     def loss_fn(generator, batch):
         clouds, t, noise = batch if isinstance(batch, (tuple, list)) else (batch, None, None)
@@ -157,7 +167,7 @@ def draw_t_noise(process, generator, b: int, so3: bool = True):
 
 
 def make_global_loss_fn(model, process, shards, so3: bool = True,
-                        aux_weight: float = AUX_WEIGHT):
+                        aux_weight: float | None = None):
     """The loss of a step over ranks: the global batch's clouds in, t and
     noise drawn for all of it from the generator every rank holds alike,
     then this rank's slice through ``make_loss_fn``.  ``shards`` is the
@@ -305,7 +315,7 @@ def train(args) -> TrainState:
     if gspmd:
         (v_clouds,) = shard_global_batch(mesh, (v_clouds,), seq_dims=(0,), dp_axis=None)
     val_loss = make_val_probe(model, process, v_clouds, t_v, noise_v, args.so3)
-    expert_fracs = model.expert_fracs if args.moe_experts > 0 else None
+    expert_fracs = model.expert_fracs if model.moe_experts > 0 else None
 
     lead = not dist.is_initialized() or dist.get_rank() == 0
     logger = MetricLogger(jsonl_path=args.log if lead else None,
@@ -436,6 +446,10 @@ def parse_args(argv=None):
     p.add_argument("--moe-experts", dest="moe_experts", type=int, default=0,
                    help="swap every encoder FFN for a Switch MoE with this many experts "
                         "(models/moe.py); 0 = dense")
+    p.add_argument("--trunk", default="transformer", choices=("transformer", *TRUNKS),
+                   help="the denoiser's trunk: the reference's post-norm encoder (--dim, --heads, "
+                        "--layers, --moe-experts) or a DeepSeek-V2 MLA + MoE trunk of "
+                        "models/deepseek_v2.py TRUNKS, which brings its own sizes")
     p.add_argument("--moe-dispatch", dest="moe_dispatch", default="scatter",
                    choices=("onehot", "scatter"),
                    help="MoE token dispatch: (T, E, C) one-hot einsums or slot scatter")

@@ -13,7 +13,7 @@ from __future__ import annotations
 from .data.pdb import RES_COUNT
 from .models.layers import DIM_FEEDFORWARD
 
-__all__ = ["planenet_flops", "protein_flops", "moe_capacity"]
+__all__ = ["planenet_flops", "dsv2_planenet_flops", "protein_flops", "moe_capacity"]
 
 
 def moe_capacity(tokens: int, experts: int, capacity_factor: float = 1.25) -> int:
@@ -42,6 +42,30 @@ def planenet_flops(dim: int, layers: int, batch: int, points: int,
     else:
         flops += layers * 2 * 2 * dim * dff * tokens
     return float(flops)
+
+
+def dsv2_planenet_flops(cfg, batch: int, points: int) -> float:
+    """One forward of PlaneNet with the DeepSeek-V2 trunk ``cfg``
+    (``models/deepseek_v2.DeepSeekV2Config``): per token the Siren and the
+    pooling, per layer and token MLA's four projections plus QK^T and AV
+    over all points, and the dense SwiGLU, or the router (d x E) and the
+    shared experts; per cloud the head.  The held experts' products run
+    through ``torch._grouped_mm``, which FlopCounterMode counts as 0; they
+    are added here over the rows a MoE layer expects, T k held / E (the
+    choices spread evenly over the experts)."""
+    d, h = cfg.hidden_size, cfg.num_attention_heads
+    nope, rope, v, rank = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    half, tokens = d // 2, batch * points
+    per_token = 2 * (3 * half + half * half) + 2 * (d + d * d)
+    mla = 2 * (d * h * (nope + rope) + d * (rank + rope) + rank * h * (nope + v) + h * v * d)
+    mla += 2 * points * h * (nope + rope + v)
+    dense = cfg.first_k_dense_replace
+    moe = cfg.num_hidden_layers - dense
+    per_token += cfg.num_hidden_layers * mla + dense * 2 * 3 * d * cfg.intermediate_size
+    per_token += moe * (2 * d * cfg.n_routed_experts + 2 * 3 * d * cfg.moe_intermediate_size * cfg.n_shared_experts)
+    rows = tokens * cfg.num_experts_per_tok * cfg.experts_held / cfg.n_routed_experts
+    routed = moe * 2 * 3 * d * cfg.moe_intermediate_size * rows
+    return float(per_token * tokens + 2 * 3 * d * batch + routed)
 
 
 def protein_flops(dim: int, t_depth: int, c_depth: int, batch: int, lr: int, ll: int,

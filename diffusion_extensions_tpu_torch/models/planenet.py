@@ -9,6 +9,10 @@ LayerNorm and softmax in float32); the embeddings and the head stay float32.
 (``models/moe.py``, scatter dispatch by default, as the JAX PlaneNet);
 after a forward, ``moe_aux()`` is the load-balance loss summed over the
 layers and ``expert_fracs()`` the (layers, E) token fractions.
+``trunk=DeepSeekV2Config(...)`` takes DeepSeek-V2's pre-norm MLA + MoE
+block (``models/deepseek_v2.py``) in place of the encoder, at the trunk's
+own width, with a final RMSNorm before the pool; its MoE layers' balance
+loss is weighted by ``aux_weight`` (the trunk's ``aux_loss_alpha``).
 
 ``planenet_pp_params`` / ``planenet_pp_apply`` run the encoder stack
 through the GPipe pipeline of ``parallel/pp.py``.
@@ -18,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .deepseek_v2 import DeepSeekV2Config, DeepSeekV2Trunk
 from .layers import PoolRN, SinusoidalPosEmb, Siren, TransformerEncoder, dense, widen
 
 __all__ = ["PlaneNet", "planenet_pp_params", "planenet_pp_apply"]
@@ -28,13 +33,22 @@ class PlaneNet(nn.Module):
     (B, 3) skew-vec noise prediction."""
 
     def __init__(self, dim: int = 512, heads: int = 4, layers: int = 4,
-                 bf16: bool = False, moe_experts: int = 0, moe_dispatch: str = "scatter"):
+                 bf16: bool = False, moe_experts: int = 0, moe_dispatch: str = "scatter",
+                 trunk: DeepSeekV2Config | None = None):
         super().__init__()
+        if trunk is not None:
+            if moe_experts:
+                raise ValueError("the DeepSeek-V2 trunk brings its own experts: moe_experts must be 0")
+            dim, moe_experts = trunk.hidden_size, trunk.n_routed_experts
+            self.aux_weight = trunk.aux_loss_alpha
         self.bf16, self.moe_experts = bf16, moe_experts
         self.siren = Siren(3, dim // 2, scale=30)
         self.pos_emb = SinusoidalPosEmb(dim // 2)
-        self.encoder = TransformerEncoder(dim, heads, layers, moe_experts=moe_experts,
-                                          moe_dispatch=moe_dispatch)
+        if trunk is not None:
+            self.encoder = DeepSeekV2Trunk(trunk)
+        else:
+            self.encoder = TransformerEncoder(dim, heads, layers, moe_experts=moe_experts,
+                                              moe_dispatch=moe_dispatch)
         self.pool = PoolRN(dim)
         self.head = dense(dim, 3)
 
@@ -51,6 +65,8 @@ class PlaneNet(nn.Module):
         return self.head(self.pool(h.float()))
 
     def _moe_layers(self):
+        if isinstance(self.encoder, DeepSeekV2Trunk):
+            return self.encoder.moe_layers()
         return [layer.moe for layer in self.encoder.layers if layer.moe is not None]
 
     def moe_aux(self) -> torch.Tensor:

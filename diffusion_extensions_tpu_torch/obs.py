@@ -19,14 +19,19 @@ rows are kept and older ones are dropped (``snapshot()`` says how many).
 An end is written by the next stamp on the stream (the next device span's
 start, or the end of a span around it), so a span whose end and the next
 span's start coincide costs one stamp there; device work issued after a
-span closes and before that stamp counts to the span that closed.  The
+span closes and before that stamp counts to the span that closed, unless
+the span was opened with ``flush=True``, whose end is stamped at once.  The
 stamp kernels show in a device trace under their own name.  Without a card
 spans keep host times only.  The stamp library is built and loaded by
 ``enable()`` on a CUDA device only.
 
 ``count(name, n)`` counters always count, spans on or off: an integer add.
 A count made inside a captured graph is made once, at capture, however
-often the graph replays.
+often the graph replays.  ``device_count(names, values)`` counters count
+on the device: an add of a tensor of integers into a buffer beside the
+data, which a captured graph makes on every replay; ``snapshot()`` reads
+them with the others.  The buffer is made by the first call, which runs
+outside a capture.
 
 Spans and counters are the process's; one thread opens spans.
 ``snapshot()`` reads them, ``reset()`` clears them; ``durations_ms``,
@@ -41,13 +46,14 @@ from contextlib import nullcontext
 
 import torch
 
-__all__ = ["ROWS", "SLOTS", "span", "count", "counter", "enable", "disable", "enabled", "reset",
-           "snapshot", "stamp_ref", "decode", "durations_ms", "gaps_us", "host_ns", "self_ns",
-           "summary", "graph_kernels"]
+__all__ = ["ROWS", "SLOTS", "DEVICE_COUNTERS", "span", "count", "device_count", "counter", "enable",
+           "disable", "enabled", "reset", "snapshot", "stamp_ref", "decode", "durations_ms", "gaps_us",
+           "host_ns", "self_ns", "summary", "graph_kernels"]
 
 ROWS = 16384  # device rows kept (one a step; a 51 s window of aircraft has ~6,400); the ring has one more
 SLOTS = 32  # a start and an end slot for each of 16 device spans
 MAX_MERGE = 4  # slots one stamp writes (the kernel's kMaxSlots)
+DEVICE_COUNTERS = 16  # places in a device's buffer of counters
 
 _NOOP = nullcontext()
 _on = False
@@ -60,6 +66,8 @@ _slots: dict[str, int] = {}  # device span -> its start slot (its end slot is th
 _ring: torch.Tensor | None = None  # (ROWS + 1, SLOTS) int64 on the card
 _row: torch.Tensor | None = None  # (1,) int64: rows begun
 _launch = None  # launch(slots, advance): one stamp kernel on the current stream
+_device_places: dict[str, int] = {}  # device counter -> its place in a device's buffer
+_device_counts: dict[torch.device, torch.Tensor] = {}  # (DEVICE_COUNTERS,) int64 on each device
 
 
 def count(name: str, n: int = 1) -> None:
@@ -70,23 +78,48 @@ def counter(name: str) -> int:
     return _counters.get(name, 0)
 
 
+def device_count(names: tuple, values: torch.Tensor) -> None:
+    """Add ``values`` (one integer a name, on the device) to the device
+    counters ``names``: one add on the device, also on every replay of a
+    captured graph.  The names of one call take neighbouring places, so
+    they are always counted together."""
+    places = [_device_places.get(n) for n in names]
+    if None in places:
+        if any(p is not None for p in places) or len(_device_places) + len(names) > DEVICE_COUNTERS:
+            raise RuntimeError(f"device counters {names} do not fit beside {sorted(_device_places)}")
+        for n in names:
+            _device_places[n] = len(_device_places)
+    first = _device_places[names[0]]
+    if [_device_places[n] for n in names] != list(range(first, first + len(names))):
+        raise RuntimeError(f"device counters {names} were counted apart before")
+    buf = _device_counts.get(values.device)
+    if buf is None:
+        if values.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("device counters are made outside a capture: run a step eagerly first")
+        buf = _device_counts[values.device] = torch.zeros(DEVICE_COUNTERS, dtype=torch.int64,
+                                                          device=values.device)
+    buf[first:first + len(names)].add_(values)
+
+
 def enabled() -> bool:
     return _on
 
 
-def span(name: str, device: bool = True):
+def span(name: str, device: bool = True, flush: bool = False):
     """A span around the ``with`` block; ``device=False`` keeps host times
-    only (a span around host work, or around a graph's replay)."""
+    only (a span around host work, or around a graph's replay);
+    ``flush=True`` stamps a device span's end at once, where device work
+    that no span of its own holds follows inside a span around it."""
     if not _on:
         return _NOOP
-    return _Span(name, device and _ring is not None)
+    return _Span(name, device and _ring is not None, flush)
 
 
 class _Span:
-    __slots__ = ("name", "device", "index", "range")
+    __slots__ = ("name", "device", "flush", "index", "range")
 
-    def __init__(self, name: str, device: bool):
-        self.name, self.device, self.range = name, device, None
+    def __init__(self, name: str, device: bool, flush: bool = False):
+        self.name, self.device, self.flush, self.range = name, device, flush, None
 
     def __enter__(self):
         global _depth
@@ -106,8 +139,8 @@ class _Span:
         if self.device:
             _depth -= 1
             _pending.append(_slot(self.name) + 1)
-            if _depth == 0:
-                _stamp(list(_pending), True)
+            if _depth == 0 or self.flush:
+                _stamp(list(_pending), _depth == 0)
         _records[self.index][3] = time.perf_counter_ns()
         _open.pop()
         if self.range is not None:
@@ -207,6 +240,8 @@ def reset() -> None:
     _pending.clear()
     _depth = 0
     _counters.clear()
+    for buf in _device_counts.values():
+        buf.zero_()  # in place: a captured graph holds its address
     if _ring is not None:
         _ring.zero_()
         _row.zero_()
@@ -216,13 +251,22 @@ def snapshot() -> dict:
     """``{"host": [[name, parent, start_ns, end_ns], ...], "device": decode()
     of the ring or None, "counters": {...}}``.  ``parent`` is the index of
     the enclosing span's record (-1: none); ``end_ns`` None: still open.
-    Waits for the card."""
+    Waits for the card.  ``counters`` holds the device counters that read
+    more than 0 too."""
     device = None
     if _ring is not None:
         if _ring.is_cuda:
             torch.cuda.synchronize(_ring.device)
         device = decode(_ring.cpu(), int(_row.item()), _slots)
-    return {"host": [list(r) for r in _records], "device": device, "counters": dict(_counters)}
+    counters = dict(_counters)
+    for buf in _device_counts.values():
+        if buf.is_cuda:
+            torch.cuda.synchronize(buf.device)
+        values = buf.cpu().tolist()
+        for name, place in _device_places.items():
+            if values[place]:  # as a host counter never counted, one that reads 0 is left out
+                counters[name] = counters.get(name, 0) + values[place]
+    return {"host": [list(r) for r in _records], "device": device, "counters": counters}
 
 
 def durations_ms(snap: dict, name: str) -> list:

@@ -262,8 +262,9 @@ def test_parser_option_matches_the_jax_drivers(name):
     """Each option: the same default, and the same value from the same
     command line."""
     ref, ours = vars(jaircraft.parse_args([])), vars(aircraft.parse_args([]))
-    assert set(ref) == set(JAX_FLAGS) and set(ours) == set(JAX_FLAGS) | {"device"}
+    # the port's own: --device, and --trunk (the JAX driver has only the encoder)
+    assert set(ref) == set(JAX_FLAGS) and set(ours) == set(JAX_FLAGS) | {"device", "trunk"}
     assert ours[name] == ref[name]
     ref, ours = vars(jaircraft.parse_args(ALL_SET)), vars(aircraft.parse_args(ALL_SET))
-    assert ours[name] == ref[name] and ours["device"] is None
+    assert ours[name] == ref[name] and ours["device"] is None and ours["trunk"] == "transformer"
     assert aircraft.parse_args(["--so3"]).ckpt == jaircraft.parse_args(["--so3"]).ckpt

@@ -521,6 +521,48 @@ def test_moe_step_replays_to_the_bits_of_eager_steps(cuda):
         assert torch.equal(w, weights[1][name]), name
 
 
+def test_dsv2_trunk_step_replays_to_the_bits_of_eager_steps(cuda, monkeypatch):
+    """Eight aircraft steps of PlaneNet with a small DeepSeek-V2 trunk (bf16,
+    MLA, 8 of 16 experts held, top 4, the grouped products' dispatch)
+    replayed from a CUDA graph give the weights and losses of eight eager
+    steps, and the device counters count every replayed step."""
+    from dataclasses import replace
+
+    from diffusion_extensions_tpu_torch.experiments import aircraft
+    from diffusion_extensions_tpu_torch.models.deepseek_v2 import DEEPSEEK_V2_LITE
+    from diffusion_extensions_tpu_torch.parallel.dp import make_dp_train_step
+    from diffusion_extensions_tpu_torch.train.optim import make_optimizer
+    from diffusion_extensions_tpu_torch.train.state import TrainState
+
+    small = replace(DEEPSEEK_V2_LITE, hidden_size=256, num_attention_heads=4, qk_nope_head_dim=32,
+                    qk_rope_head_dim=16, v_head_dim=32, kv_lora_rank=64, intermediate_size=512,
+                    moe_intermediate_size=128, n_routed_experts=16, num_experts_per_tok=4,
+                    num_hidden_layers=3, experts_held=8)
+    monkeypatch.setitem(aircraft.TRUNKS, "small", small)
+    args = aircraft.parse_args(["--so3", "--timesteps", "100", "--trunk", "small", "--bf16"])
+    batches = torch.randn(8, 8, 32, 3, generator=torch.Generator().manual_seed(0)).to(cuda)
+    weights, losses, rows = [], [], []
+    for k in (1, 8):
+        obs.reset()
+        model, process = aircraft.build(args, cuda)
+        opt = make_optimizer(model.named_parameters(), 1e-3, impl="fused")
+        step = make_dp_train_step(aircraft.make_loss_fn(model, process), model, opt, steps_per_call=k)
+        state = TrainState(model, opt, torch.Generator(device=cuda).manual_seed(1))
+        out = []
+        for i in range(0, 8, k):
+            state, m = step(state, batches[i] if k == 1 else batches[i:i + k])
+            out.append(m["loss"].clone())
+        weights.append(model.state_dict())
+        losses.append(torch.stack(out[-1:]))
+        rows.append(obs.snapshot()["counters"])
+    for name, w in weights[0].items():
+        assert torch.equal(w, weights[1][name]), name
+    assert torch.equal(losses[0], losses[1])
+    assert rows[0]["moe.layer_steps"] == rows[1]["moe.layer_steps"] == 8 * 2
+    assert rows[0]["moe.rows"] == rows[1]["moe.rows"] > 0
+    assert rows[1]["moe.captures"] == 2 and rows[1]["moe.graph_kernels"] > 0
+
+
 def test_nccl_world_of_one_replays_its_all_reduce(cuda):
     """A NCCL group of one made in this process: K = 4 replayed steps
     through the all-reduce give the bits of the steps without a group, and

@@ -53,7 +53,7 @@ def test_port_and_chip_smoke_import_no_jax():
         timeout=300,
     )
     assert res.returncode == 0, res.stderr
-    # package + ops(8) + processes(6) + models(7) + data(6) + experiments(10) + convert
+    # package + ops(8) + processes(6) + models(8) + data(6) + experiments(10) + convert
     # + bench + flops + obs + sweep + train(4) + parallel(2) + viz(5)
     lines = res.stdout.strip().splitlines()
     assert int(lines[-1]) >= 54
@@ -68,4 +68,5 @@ def test_port_and_chip_smoke_import_no_jax():
             f"{pkg}.data.jigsaw", f"{pkg}.experiments.jigsaw", f"{pkg}.experiments.diagnostics",
             f"{pkg}.experiments.grad_check", f"{pkg}.viz", f"{pkg}.viz.colors", f"{pkg}.viz.mpl",
             f"{pkg}.viz.obj3d", f"{pkg}.viz.sphere", f"{pkg}.bench", f"{pkg}.flops",
-            f"{pkg}.sweep", f"{pkg}.experiments.probe_protein", f"{pkg}.obs"} <= imported
+            f"{pkg}.sweep", f"{pkg}.experiments.probe_protein", f"{pkg}.obs",
+            f"{pkg}.models.deepseek_v2"} <= imported

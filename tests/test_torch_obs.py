@@ -164,6 +164,52 @@ def test_device_spans_stamp_once_where_an_end_meets_a_start(monkeypatch):
     assert s["device_ms"]["model.forward"] == pytest.approx(1e-6) and s["rows"] == 3
 
 
+def test_a_flushed_span_stamps_its_end_before_the_work_after_it(monkeypatch):
+    """``flush=True`` (the DeepSeek-V2 trunk's FFN spans): the span's end
+    takes a stamp of its own at once, so work after it inside the span
+    around it (the next layer's attention) counts to neither FFN span; a
+    step of two flushed spans inside a forward takes 7 stamps."""
+    ring = torch.zeros((obs.ROWS + 1, obs.SLOTS), dtype=torch.int64)
+    row = torch.zeros(1, dtype=torch.int64)
+    clock = itertools.count(1)
+    monkeypatch.setattr(obs, "_ring", ring)
+    monkeypatch.setattr(obs, "_row", row)
+    monkeypatch.setattr(obs, "_launch", lambda s, adv: obs.stamp_ref(ring, row, s, adv, next(clock)))
+    obs.enable("cpu")
+    for _ in range(2):
+        with obs.span("train.step"):
+            with obs.span("model.forward"):
+                for name in ("ffn.dense", "moe.l1"):
+                    with obs.span(name, flush=True):
+                        pass
+    assert obs.counter("obs.stamps") == 14
+    spans = obs.snapshot()["device"]["spans"]
+    for r in range(2):
+        start = {n: v["start"][r] for n, v in spans.items()}
+        end = {n: v["end"][r] for n, v in spans.items()}
+        assert start["model.forward"] < start["ffn.dense"] < end["ffn.dense"] < start["moe.l1"] < end["moe.l1"]
+        assert end["moe.l1"] < end["model.forward"] == end["train.step"]
+
+
+def test_device_counters_add_on_the_device_and_reset_in_place():
+    """``device_count``: integers added into a buffer beside the data (here
+    the CPU's), read by ``snapshot()`` with the host counters; a call's
+    names keep neighbouring places; ``reset()`` zeros the buffer in place
+    (a captured graph holds its address)."""
+    names = ("test.rows", "test.rows_max")
+    obs.count("test.host", 2)
+    for v in ([3, 1], [4, 2]):
+        obs.device_count(names, torch.tensor(v))
+    c = obs.snapshot()["counters"]
+    assert (c["test.rows"], c["test.rows_max"], c["test.host"]) == (7, 3, 2)
+    buf = obs._device_counts[torch.device("cpu")]
+    obs.reset()
+    assert obs._device_counts[torch.device("cpu")] is buf and int(buf.abs().sum()) == 0
+    assert "test.rows" not in obs.snapshot()["counters"]
+    with pytest.raises(RuntimeError):
+        obs.device_count(("test.rows_max", "test.other"), torch.tensor([1, 1]))
+
+
 def _aircraft_steps(on: bool):
     """Three eager Adam steps of a tiny PlaneNet on fixed clouds."""
     from diffusion_extensions_tpu_torch.experiments import aircraft

@@ -17,14 +17,16 @@ rounds, spans off (``obs.disable()``) in the off windows; each window's ms
 a step is printed, and the cost of spans on each round's pair of windows.  The spans of the on windows give the phase split:
 median device ms a step of each span, device us between two steps, host us
 a replay.  Then ``--trace-calls`` calls of the on step run under
-``torch.profiler``: the trace is cut into phases at the stamp kernels (six a
-step), and each phase's device operations a step, busy time a step (the
-union of their intervals), time from stamp to stamp and five biggest
-kernels are printed beside the ring's medians of the same calls; the
-stretch's idle time is split by the innermost ``dxt::`` host range over the
-middle of each gap ("outside the program" where none is).  One JSON line
-goes to standard output, the tables to standard error.  Needs an NVIDIA
-GPU; imports torch, numpy, the port and the benchmark's harness only.
+``torch.profiler``: the trace is cut into phases at the stamp kernels (six
+a step; sixteen for the DeepSeek-V2 trunk's cell), and each phase's device
+operations a step, busy time a step (the union of their intervals), time
+from stamp to stamp and five biggest kernels are printed beside the ring's
+medians of the same calls (for the DeepSeek-V2 trunk's cell the forward
+is cut further, at its FFN spans: ``phases_of``); the stretch's idle time
+is split by the innermost ``dxt::`` host range over the middle of each gap
+("outside the program" where none is).  One JSON line goes to standard
+output, the tables to standard error.  Needs an NVIDIA GPU; imports torch,
+numpy, the port and the benchmark's harness only.
 """
 from __future__ import annotations
 
@@ -54,9 +56,24 @@ PHASES = ["train.step before process.noise", "process.noise", "model.forward", "
 CHILDREN = PHASES[1:5]  # the spans inside train.step
 
 
+def phases_of(cfg: dict) -> list:
+    """PHASES of a cell's model: with the DeepSeek-V2 trunk
+    (``planenet_dsv2``) ``model.forward`` is cut at the stamps of its
+    ``ffn.dense`` and ``moe.l<i>`` spans (each stamped at both ends): the
+    embedding and each layer's attention before its FFN, the FFN, and
+    after the trunk (the final norm, the pool, the head and the loss)."""
+    if cfg["family"] != "planenet_dsv2":
+        return PHASES
+    trunk = []
+    for i in range(cfg["num_hidden_layers"]):
+        trunk.append("embedding + layer 0 attention" if i == 0 else f"layer {i} attention")
+        trunk.append("ffn.dense" if i < cfg["first_k_dense_replace"] else f"moe.l{i}")
+    return PHASES[:2] + trunk + ["after the trunk"] + PHASES[3:]
+
+
 def build(name: str, seed: int, device: torch.device):
     """The cell's step function, state and pool, and its steps a call."""
-    _, cfg, traffic = cell.load(name)
+    cfg, traffic = cell.load(name)[1:]
     fam = files.family(cfg["family"])
     b = train.build(cfg, traffic, seed, device, fam)
     step_fn = train.step_function(cfg, traffic, b)
@@ -99,8 +116,8 @@ def _events(prof):
     return sorted(dev, key=lambda r: r[1]), host
 
 
-def cut(dev: list) -> dict:
-    """The stretch's device operations split into PHASES at the stamps.  A
+def cut(dev: list, phases: list = PHASES) -> dict:
+    """The stretch's device operations split into ``phases`` at the stamps.  A
     step's stamps are those between two host copies into the graph's batch
     (``Memcpy DtoD``: inside a graph a copy runs as a kernel); a step whose
     stamps the trace did not hold all of is left out."""
@@ -117,11 +134,11 @@ def cut(dev: list) -> dict:
     steps.append(current)
     bounds = []  # (start, end, phase) of each whole step's phases, in order
     for i, stamps in enumerate(steps):
-        if len(stamps) != len(PHASES):
+        if len(stamps) != len(phases):
             continue
         after = steps[i + 1][0][1] if i + 1 < len(steps) else None
         ends = [s[1] for s in stamps[1:]] + [after]
-        bounds += [(s[1], e, phase) for phase, s, e in zip(PHASES, stamps, ends) if e is not None]
+        bounds += [(s[1], e, phase) for phase, s, e in zip(phases, stamps, ends) if e is not None]
     starts = [b[0] for b in bounds]
     ops = defaultdict(list)
     for row in dev:
@@ -129,7 +146,7 @@ def cut(dev: list) -> dict:
         if "obs_stamp" not in row[0] and i >= 0 and row[1] < bounds[i][1]:
             ops[bounds[i][2]].append(row)
     out = {}
-    for phase in PHASES:
+    for phase in phases:
         walls = [e - s for s, e, p in bounds if p == phase]
         n = max(len(walls), 1)
         by_name = defaultdict(float)
@@ -139,7 +156,7 @@ def cut(dev: list) -> dict:
         out[phase] = {"steps": len(walls), "kernels": len(ops[phase]) / n, "busy_ms": busy / 1e6 / n,
                       "stamp_to_stamp_ms": statistics.median(walls) / 1e6 if walls else None,
                       "top": sorted(([k[:70], v] for k, v in by_name.items()), key=lambda x: -x[1])[:5]}
-    out["steps dropped"] = sum(len(s) != len(PHASES) for s in steps)
+    out["steps dropped"] = sum(len(s) != len(phases) for s in steps)
     return out
 
 
@@ -173,6 +190,7 @@ def main() -> int:
     device = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
+    phase_names = phases_of(cell.load(args.workload)[1])
     off = build(args.workload, args.seed, device)
     obs.enable(device)
     on = build(args.workload, args.seed, device)
@@ -200,10 +218,11 @@ def main() -> int:
         torch.cuda.synchronize()
     stretch_spans = obs.summary(obs.snapshot())
     dev, host = _events(prof)
-    phases = cut(dev)
-    for name in CHILDREN:
-        phases[name]["ring_ms_in_stretch"] = stretch_spans["device_ms"][name]
-        phases[name]["ring_ms_untraced"] = dm[name]
+    phases = cut(dev, phase_names)
+    for name in phase_names:
+        if name in dm:
+            phases[name]["ring_ms_in_stretch"] = stretch_spans["device_ms"][name]
+            phases[name]["ring_ms_untraced"] = dm[name]
     idle = idle_by_span(dev, host)
     out = {"workload": args.workload, "seed": args.seed, "card": card, "off_ms": ms["off"], "on_ms": ms["on"],
            "cost_pct": 100 * (on_ms / off_ms - 1),
@@ -219,7 +238,7 @@ def main() -> int:
           f"cost {out['cost_pct']:+.3f}%", file=sys.stderr)
     print(f"ring medians (ms): {json.dumps(dm)}; between steps {spans['between_steps_us']:.2f} us; "
           f"host us {json.dumps(spans['host_us'])}", file=sys.stderr)
-    for phase in PHASES:
+    for phase in phase_names:
         v = phases[phase]
         print(f"  {phase:34s} {v['kernels']:7.1f} ops, busy {v['busy_ms']:8.4f} ms/step, stamp to stamp "
               f"{v['stamp_to_stamp_ms'] or 0:8.4f}, ring {v.get('ring_ms_in_stretch', '-')}", file=sys.stderr)
