@@ -8,7 +8,10 @@ nvcc per source, all started together; prints what ptxas says of each and,
 where cuobjdump is there, the SASS instruction counts), holds each against
 its plain PyTorch version on the card (Adam's update at the leaf sets of the
 benchmark's two configurations, timed beside the plain version and, with
-float32 moments, ``torch.optim.Adam(fused=True)``), then drives seventeen
+float32 moments, ``torch.optim.Adam(fused=True)``; the experts layer's six
+row-pass kernels at the dsv2lite-aircraft-train cell's shapes, forward and
+backward, at ~10,330 held rows and at all T k rows, timed beside their
+bytes bound and the plain versions), then drives seventeen
 paths at full size, each with the kernels' launch counts set to 0 just
 before it and read just after:
 
@@ -84,7 +87,8 @@ before it and read just after:
   at DeepSeek-V2-Lite's widths, 8 of 64 experts held, 487,890,436
   parameters) at the dsv2lite-aircraft-train cell's size through
   ``aircraft.main``: 32 replayed bf16 K = 8 steps, then one profiled call
-  of a fresh step (Adam's kernel once a step, the held experts' rows);
+  of a fresh step (Adam's kernel once a step, the six row-pass kernels a
+  MoE layer a step, the held experts' rows);
 * the multi-process code at world size 1 over NCCL (a group made in this
   process; the card's machine has one GPU): 16 replayed K = 8 steps through
   the data-parallel all-reduce against the same steps without a group, to
@@ -158,7 +162,7 @@ from diffusion_extensions_tpu_torch.models.planenet import PlaneNet
 from diffusion_extensions_tpu_torch.models.projections import PointCloudProj, ProtProjection
 from diffusion_extensions_tpu_torch.models.protnet import ProtNet
 from diffusion_extensions_tpu_torch.models.rot_predict import RotPredict
-from diffusion_extensions_tpu_torch.ops import _build, adam_cuda, igso3_cuda, mmd_cuda
+from diffusion_extensions_tpu_torch.ops import _build, adam_cuda, igso3_cuda, mmd_cuda, moe_rows_cuda
 from diffusion_extensions_tpu_torch.ops.igso3 import (
     IGSO3xR3,
     IsotropicGaussianSO3,
@@ -238,6 +242,14 @@ ADAM_SETS = {"planenet-d512": ("planenet", "optax", "f32"),
              "protnet-d1024-prod": ("protnet", "fused", "bf16")}
 ADAM_BYTES = {"f32": 28, "bf16": 20}
 ADAM_CHECK_STEPS = 3
+# the experts layer's row passes at the dsv2lite-aircraft-train cell's shapes:
+# T tokens, top k of e experts, `held` of them held, widths d and f.
+# held_bias lowers the held experts' scores so that about 10,330 of the
+# T k rows are held, as the cell's untrained router holds them ("cell");
+# "all" holds every expert (n = T k)
+MOE_ROWS = dict(t=16_384, k=6, e=64, held=8, d=2048, f=1408, held_bias=-0.105)
+MOE_ROWS_KERNELS = ("moe_gather_rows", "moe_gather_rows_backward", "moe_swiglu_rows",
+                    "moe_swiglu_rows_backward", "moe_combine_rows", "moe_combine_rows_backward")
 PROTEIN_ARGV = ["--se3", "--bf16", "--dim", "1024", "--heads", "8", "--t_depth", "12",
                 "--c_depth", "8", "--frame-pool", "--cross-depth", "2", "--rel-frame",
                 "--equiv-head", "--batch", "16", "--timesteps", "1000",
@@ -314,7 +326,8 @@ def kernel_launches() -> dict:
     """Each kernel's launches since the last ``obs.reset()``."""
     return {"igso3_logpdf_score": obs.counter("ops.igso3.launches"),
             "gaussian_kernel_sum": obs.counter("ops.mmd.launches"),
-            "adam_update": obs.counter("ops.adam.launches")}
+            "adam_update": obs.counter("ops.adam.launches"),
+            "moe_rows": obs.counter("ops.moe_rows.launches")}
 
 
 def time_cuda(fn, iters: int, warmup: int = 10) -> float:
@@ -433,7 +446,7 @@ def phase_build() -> dict:
     """The kernels' nvcc builds, started together; returns each kernel's
     SASS instruction counts, or "not available" without cuobjdump."""
     kernels = {"igso3_logpdf_score": igso3_cuda, "gaussian_kernel_sum": mmd_cuda,
-               "adam_update": adam_cuda}
+               "adam_update": adam_cuda, "moe_rows": moe_rows_cuda}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         futures = {name: pool.submit(mod.build) for name, mod in kernels.items()}
@@ -454,7 +467,8 @@ def sass_counts(sass: dict) -> dict:
     arithmetic paths), each Adam kernel's instruction count, or "not
     available"."""
     out = {"gaussian_kernel_sum": "not available", "igso3_logpdf_score": "not available",
-           "adam_update": sass_instructions(sass["adam_update"])}
+           "adam_update": sass_instructions(sass["adam_update"]),
+           "moe_rows": sass_instructions(sass["moe_rows"])}
     mmd_fns = sass["gaussian_kernel_sum"]
     if isinstance(mmd_fns, dict):
         for name, fn in mmd_fns.items():
@@ -751,6 +765,141 @@ def phase_adam_check() -> dict:
         emit("kernel_time", kernel="adam_update", set=name, **timing)
         out[name] = timing
         del kernel, plain, mine, ref, init, grads, ps, qs
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_rows_operands(case: str, seed: int = 0) -> dict:
+    """A routing drawn on the card at MOE_ROWS's shapes (``"cell"`` or
+    ``"all"``), its plan, and each pass's inputs and incoming gradients,
+    rows past n filled with NaN (the kernels never read them)."""
+    c = MOE_ROWS
+    t, k, d, f = c["t"], c["k"], c["d"], c["f"]
+    held = c["e"] if case == "all" else c["held"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scores = torch.randn(t, c["e"], generator=gen, device="cuda")
+    if case == "cell":
+        scores[:, :held] += c["held_bias"]
+    top_i = scores.topk(k, dim=-1).indices
+    order, inv, _, offs = moe_rows_cuda.dispatch_plan(top_i, 0, held)
+    n = int(offs[-1])
+
+    def rnd(*shape, dt=torch.bfloat16, past_n=False):
+        x = torch.randn(*shape, generator=gen, device="cuda").to(dt)
+        if past_n:
+            x[n:] = float("nan")
+        return x
+
+    r = t * k
+    return dict(order=order, inv=inv, offs=offs, mine=top_i < held, n=n, t=t, k=k, d=d, f=f,
+                tokens=rnd(t, d, dt=torch.float32), w=torch.rand(t, k, generator=gen, device="cuda"),
+                grad_xs=rnd(r, d, past_n=True), h1=rnd(r, 2 * f, past_n=True),
+                grad_h=rnd(r, f, past_n=True), ys=rnd(r, d, past_n=True),
+                grad_out=rnd(t, d, dt=torch.float32))
+
+
+def moe_rows_bytes(o: dict) -> dict:
+    """Each kernel's bytes: every input byte it needs read once, every
+    output byte written once, at these operands' n (bf16 rows: 2 bytes;
+    float32 tokens, weights and results: 4; int64 order and inv: 8).  The
+    gather reads the tokens with a held choice once each."""
+    n, t, k, d, f = o["n"], o["t"], o["k"], o["d"], o["f"]
+    used = int(o["mine"].any(dim=1).sum())
+    return {"moe_gather_rows": used * d * 4 + n * d * 2 + n * 8,
+            "moe_gather_rows_backward": n * d * 2 + t * k * 8 + t * d * 4,
+            "moe_swiglu_rows": n * 2 * f * 2 + n * f * 2,
+            "moe_swiglu_rows_backward": n * f * 2 + n * 2 * f * 2 + n * 2 * f * 2,
+            "moe_combine_rows": n * d * 2 + t * k * 12 + t * d * 4,
+            "moe_combine_rows_backward": t * d * 4 + n * d * 2 + t * k * 12 + n * d * 2 + t * k * 4}
+
+
+def phase_moe_rows_check() -> dict:
+    """The experts layer's six row-pass kernels (``ops/moe_rows_cuda.py``)
+    at MOE_ROWS's shapes, at ~10,330 held rows and at all T k: each pass
+    forward and backward through the wrapper against its plain version
+    (autograd), the rows under n and the per-token results to the bit, the
+    combine's weight gradient within 2 d 2^-24 sum |g y| (a float32 dot
+    product summed in another order), six launches; then each kernel's
+    device ms (a CUDA graph replayed, outputs allocated once) beside its
+    bytes bound, and the plain version's ms (its forward, or its backward
+    alone through ``torch.autograd.grad``)."""
+    mr = moe_rows_cuda
+    out = {}
+    for case in ("cell", "all"):
+        o = moe_rows_operands(case)
+        n, order, inv, offs, mine = o["n"], o["order"], o["inv"], o["offs"], o["mine"]
+        obs.reset()
+        res = {}
+        for kernel in (True, False):
+            tokens = o["tokens"].clone().requires_grad_(True)
+            xs = (mr.gather if kernel else mr.gather_ref)(tokens, order, inv, offs, torch.bfloat16)
+            (dtok,) = torch.autograd.grad(xs, [tokens], o["grad_xs"])
+            h1 = o["h1"].clone().requires_grad_(True)
+            h = mr.swiglu(h1, offs) if kernel else mr.swiglu_ref(h1)
+            (dh1,) = torch.autograd.grad(h, [h1], o["grad_h"])
+            ys, w = o["ys"].clone().requires_grad_(True), o["w"].clone().requires_grad_(True)
+            y = (mr.combine if kernel else mr.combine_ref)(ys, w, inv, offs)
+            dys, dw = torch.autograd.grad(y, [ys, w], o["grad_out"])
+            res[kernel] = [xs[:n], dtok, h[:n], dh1[:n], y, dys[:n], dw]
+        sync()
+        launches = obs.counter("ops.moe_rows.launches")
+        same = all(torch.equal(a, b) for a, b in zip(res[True][:6], res[False][:6]))
+        finite = all(bool(torch.isfinite(a).all()) for a in res[True])
+        rows = o["ys"].float().index_select(0, inv).view(o["t"], o["k"], -1)
+        scale = torch.where(mine, (o["grad_out"][:, None, :] * rows).abs().sum(-1), 0.0)
+        err = (res[True][6] - res[False][6]).abs()
+        gate = float((err / (2 * o["d"] * 2.0**-24 * scale).clamp_min(1e-30)).max())
+        emit("kernel_check", kernel="moe_rows", case=case, n=n, rows=o["t"] * o["k"], launches=launches,
+             bit_identical=same, finite=finite, grad_w_max_abs_err=float(err.max()), grad_w_gate_ratio=gate)
+        if launches != 6 or not same or not finite or gate > 1.0:
+            raise AssertionError(f"moe_rows {case}: {launches} launches, bit-identical {same}, finite "
+                                 f"{finite}, grad_w at {gate} of its gate")
+        del res
+
+        def empty(*shape, dt=torch.bfloat16):
+            return torch.empty(shape, device="cuda", dtype=dt)
+
+        t, k, d, f = o["t"], o["k"], o["d"], o["f"]
+        xs_o, tok_o, h_o, dh1_o = empty(t * k, d), empty(t, d, dt=torch.float32), empty(t * k, f), empty(
+            t * k, 2 * f)
+        y_o, dys_o, dw_o = empty(t, d, dt=torch.float32), empty(t * k, d), empty(t, k, dt=torch.float32)
+        kernels = {
+            "moe_gather_rows": lambda: mr.launch_gather(o["tokens"], order, offs, xs_o),
+            "moe_gather_rows_backward": lambda: mr.launch_gather_backward(o["grad_xs"], inv, offs, tok_o),
+            "moe_swiglu_rows": lambda: mr.launch_swiglu(o["h1"], offs, h_o),
+            "moe_swiglu_rows_backward": lambda: mr.launch_swiglu_backward(o["grad_h"], o["h1"], offs, dh1_o),
+            "moe_combine_rows": lambda: mr.launch_combine(o["ys"], o["w"], inv, offs, y_o),
+            "moe_combine_rows_backward": lambda: mr.launch_combine_backward(
+                o["grad_out"], o["ys"], o["w"], inv, offs, dys_o, dw_o),
+        }
+        tokens = o["tokens"].clone().requires_grad_(True)
+        h1 = o["h1"].clone().requires_grad_(True)
+        ys, w = o["ys"].clone().requires_grad_(True), o["w"].clone().requires_grad_(True)
+        xs_p = mr.gather_ref(tokens, order, inv, offs, torch.bfloat16)
+        h_p = mr.swiglu_ref(h1)
+        y_p = mr.combine_ref(ys, w, inv, offs)
+        plain = {
+            "moe_gather_rows": lambda: mr.gather_ref(o["tokens"], order, inv, offs, torch.bfloat16),
+            "moe_gather_rows_backward": lambda: torch.autograd.grad(xs_p, [tokens], o["grad_xs"],
+                                                                    retain_graph=True),
+            "moe_swiglu_rows": lambda: mr.swiglu_ref(o["h1"]),
+            "moe_swiglu_rows_backward": lambda: torch.autograd.grad(h_p, [h1], o["grad_h"], retain_graph=True),
+            "moe_combine_rows": lambda: mr.combine_ref(o["ys"], o["w"], inv, offs),
+            "moe_combine_rows_backward": lambda: torch.autograd.grad(y_p, [ys, w], o["grad_out"],
+                                                                     retain_graph=True),
+        }
+        nbytes = moe_rows_bytes(o)
+        out[case] = {"n": n}
+        for name in MOE_ROWS_KERNELS:
+            bound_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
+            with torch.set_grad_enabled("backward" in name):
+                plain_ms = time_cuda(plain[name], 10, warmup=2)
+            timing = dict(ms=time_graph(kernels[name], reps=20), plain_ms=plain_ms, bound_ms=bound_ms,
+                          bytes=nbytes[name], bound_by="bytes")
+            timing["roofline_pct"] = 100.0 * bound_ms / timing["ms"]
+            emit("kernel_time", kernel=name, case=case, n=n, **timing)
+            out[case][name] = timing
+        del o, kernels, plain, xs_p, h_p, y_p
         torch.cuda.empty_cache()
     return out
 
@@ -2182,11 +2331,13 @@ def phase_dsv2_aircraft(tmp: str) -> dict:
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
              and not e.name.startswith("dxt::")]
     adam_a_step = sum("adam_update" in n for n in names) / 8
+    moe_rows_a_step = sum(any(f"{k}<" in n for k in MOE_ROWS_KERNELS) for n in names) / 8
     trunk = model.encoder.cfg
     rows = after["moe.rows"] - before["moe.rows"]
     expected = ((trunk.num_hidden_layers - trunk.first_k_dense_replace) * DSV2["batch"] * DSV2["samples"]
                 * trunk.num_experts_per_tok * trunk.experts_held / trunk.n_routed_experts)
     emit("dsv2_aircraft", run="profiled_call", adam_launches_a_step=adam_a_step,
+         moe_rows_kernels_a_step=moe_rows_a_step,
          device_ops_a_step=len(names) / 8, graph_kernels=after.get("train.graph_kernels"),
          moe_kernels_per_layer=after["moe.graph_kernels"] / after["moe.captures"],
          held_rows_a_step=rows / 8, expected_rows_a_step=expected,
@@ -2194,6 +2345,10 @@ def phase_dsv2_aircraft(tmp: str) -> dict:
          loss=float(m["loss"]))
     if adam_a_step != 1 or not np.isfinite(float(m["loss"])):
         raise AssertionError(f"dsv2_aircraft: adam_update {adam_a_step} a step, loss {float(m['loss'])}")
+    moe_layers = trunk.num_hidden_layers - trunk.first_k_dense_replace
+    if moe_rows_a_step != 6 * moe_layers:
+        raise AssertionError(f"dsv2_aircraft: {moe_rows_a_step} row-pass kernels a step, "
+                             f"not 6 in each of {moe_layers} MoE layers")
     return launches
 
 
@@ -2386,6 +2541,7 @@ def main() -> None:
     check = timed("kernel_check_igso3", phase_kernel_check)
     mmd_check = timed("kernel_check_mmd", phase_mmd_check)
     adam = timed("kernel_check_adam", phase_adam_check)
+    moe_rows = timed("kernel_check_moe_rows", phase_moe_rows_check)
     timed("small_agreement_aircraft", small_cpu_agreement)
     timed("small_agreement_bingham", small_bingham_agreement)
     timed("small_agreement_train", small_train_agreement)
@@ -2486,6 +2642,17 @@ def main() -> None:
         **{f"{k}_{name}": v for name, row in adam.items() for k, v in row.items()
            if k in ("ms", "plain_ms", "library_ms", "bound_ms", "call_ms", "roofline_pct")},
         "sass_instructions": sass["adam_update"],
+    }, {
+        "name": "moe_rows",
+        "route": "cuda",
+        "source": "diffusion_extensions_tpu_torch/csrc/moe_rows.cu",
+        "replaces": None,
+        "launches": launches["moe_rows"],
+        "launches_by_path": {p: n["moe_rows"] for p, n in by_path.items()},
+        "pass": True,
+        **{f"{k}_{name}_{case}": v for case, rows in moe_rows.items() for name, row in rows.items()
+           if isinstance(row, dict) for k, v in row.items() if k in ("ms", "plain_ms", "bound_ms", "roofline_pct")},
+        "sass_instructions": sass["moe_rows"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     # every path that trains on the card updates through Adam's kernel
@@ -2496,6 +2663,8 @@ def main() -> None:
     missing = [p for p in trains if by_path[p]["adam_update"] == 0]
     if missing:
         raise AssertionError(f"paths that trained without launching adam_update: {missing}")
+    if by_path["dsv2_aircraft"]["moe_rows"] == 0:
+        raise AssertionError("the DeepSeek-V2 trunk's path launched no moe_rows kernel")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

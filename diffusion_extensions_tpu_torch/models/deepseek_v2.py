@@ -45,7 +45,11 @@ rows go through ``torch._grouped_mm`` with the groups' ends on the
 device, and each token's rows come back through the inverse permutation.
 The rows past the held ones are the others' choices, which the grouped
 products neither read nor write; nothing downstream reads them either.
-The dispatch's backward sums a token's rows in the fixed order of its k
+The row passes around the grouped products (the dispatch's gather, the
+SwiGLU activation, the weighted combine, and their backwards) are
+``ops/moe_rows_cuda.py``'s: on the card hand-written kernels that read the
+held rows' count there and touch only those rows, on the CPU the plain
+PyTorch chain.  A token's rows are summed in the fixed order of its k
 choices (no atomic adds), so replayed steps repeat eager steps' bits.  On
 the card the grouped products take bf16 (the trunk runs under autocast).
 
@@ -67,6 +71,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from .. import obs
+from ..ops import moe_rows_cuda as moe_rows
 from .layers import _TRUNC_STD, widen
 from .moe import _lecun_normal_stacked
 
@@ -179,27 +184,6 @@ class MLA(nn.Module):
         return self.o_proj(o)
 
 
-class _Dispatch(torch.autograd.Function):
-    """The rows of ``x`` in expert order (row r holds token
-    ``token_of_row[r]``).  The backward gathers each token's k rows through
-    ``inv`` (the row of each choice) and sums those of held choices
-    (``mine`` (T, k)) in the choices' order: no atomic adds, and the rows
-    of choices not held, which the grouped products leave unwritten, are
-    never read."""
-
-    @staticmethod
-    def forward(ctx, x, token_of_row, inv, mine):
-        ctx.save_for_backward(inv, mine)
-        return x.index_select(0, token_of_row)
-
-    @staticmethod
-    def backward(ctx, grad):
-        inv, mine = ctx.saved_tensors
-        t, k = mine.shape
-        rows = grad.index_select(0, inv).view(t, k, -1)
-        return torch.where(mine[..., None], rows, 0).sum(dim=1), None, None, None
-
-
 class DeepSeekMoE(nn.Module):
     """The MoE FFN of layer ``index``: a softmax top-k router over all
     ``n_routed_experts``, the held experts' SwiGLUs (``gate_up`` (held, d,
@@ -240,25 +224,17 @@ class DeepSeekMoE(nn.Module):
     def _held_experts(self, tokens: torch.Tensor, top_w: torch.Tensor, top_i: torch.Tensor) -> torch.Tensor:
         """sum over each token's held choices of s_i E_i(x): (T, d) float32."""
         cfg = self.cfg
-        t, k = top_i.shape
         held, dev = cfg.experts_held, tokens.device
-        local = top_i - cfg.first_expert
-        mine = (local >= 0) & (local < held)
-        key = torch.where(mine, local, held).reshape(-1)
-        order = torch.argsort(key, stable=True)  # the choices by held expert, the others last
-        inv = torch.empty_like(order).scatter_(0, order, torch.arange(t * k, device=dev))
-        counts = (key[:, None] == torch.arange(held, device=dev)).sum(dim=0)
-        offs = torch.cumsum(counts, dim=0).to(torch.int32)
+        order, inv, counts, offs = moe_rows.dispatch_plan(top_i, cfg.first_expert, held)
         if self._tally is None or self._tally.device != dev:
             self._tally = torch.tensor([1, held], device=dev)
         obs.device_count(("moe.rows", "moe.rows_max", "moe.layer_steps", "moe.experts_held"),
                          torch.cat((counts.sum(0, keepdim=True), counts.amax(0, keepdim=True), self._tally)))
         dt = torch.get_autocast_dtype(dev.type) if torch.is_autocast_enabled(dev.type) else tokens.dtype
-        xs = _Dispatch.apply(tokens.to(dt), order // k, inv, mine)
-        gate, up = torch._grouped_mm(xs, self.gate_up.to(dt), offs=offs).chunk(2, dim=-1)
-        ys = torch._grouped_mm(F.silu(gate) * up, self.down.to(dt), offs=offs)
-        back = torch.where(mine[..., None], ys.index_select(0, inv).view(t, k, -1), 0)
-        return torch.sum(back * top_w[..., None], dim=1)
+        xs = moe_rows.gather(tokens, order, inv, offs, dt)
+        h = moe_rows.swiglu(torch._grouped_mm(xs, self.gate_up.to(dt), offs=offs), offs)
+        ys = torch._grouped_mm(h, self.down.to(dt), offs=offs)
+        return moe_rows.combine(ys, top_w, inv, offs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, d = x.shape

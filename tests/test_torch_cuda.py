@@ -561,6 +561,9 @@ def test_dsv2_trunk_step_replays_to_the_bits_of_eager_steps(cuda, monkeypatch):
     assert rows[0]["moe.layer_steps"] == rows[1]["moe.layer_steps"] == 8 * 2
     assert rows[0]["moe.rows"] == rows[1]["moe.rows"] > 0
     assert rows[1]["moe.captures"] == 2 and rows[1]["moe.graph_kernels"] > 0
+    # the row passes ran as kernels: 6 a MoE layer and step eagerly, once at capture
+    assert rows[0]["ops.moe_rows.launches"] == 8 * 2 * 6
+    assert rows[1]["ops.moe_rows.launches"] == 2 * 2 * 6
 
 
 def test_nccl_world_of_one_replays_its_all_reduce(cuda):
@@ -838,3 +841,211 @@ def test_adam_kernel_refuses_leaves_it_cannot_take(cuda):
             adam_update(p, g, m, v, one, one, one, None, impl="optax", b1=0.9, b2=0.999,
                         eps=1e-8, clip=0.0)
     assert obs.counter("ops.adam.launches") == before
+
+
+# The experts layer's row passes (ops/moe_rows_cuda.py) at the
+# dsv2lite-aircraft-train cell's shapes: T 16,384 tokens, top 6 of 64
+# experts, 8 held, d 2,048, f 1,408.  HELD_BIAS lowers the held experts'
+# scores so that about 10,330 of the T k = 98,304 rows are held, as the
+# cell's untrained router holds them.
+MOE_CELL = dict(t=16_384, k=6, e=64, held=8, d=2048, f=1408)
+HELD_BIAS = -0.105
+
+
+def _moe_plan(cuda, case, seed=0, t=MOE_CELL["t"], k=MOE_CELL["k"], e=MOE_CELL["e"]):
+    """(order, inv, offs, held_mask (T, k)) of a routing drawn on the card:
+    ``"cell"`` ~10.5% of the choices held, token 0 holding all its k
+    choices and token 1 none; ``"none"`` no choice held (n = 0); ``"all"``
+    every expert held (n = T k, as with experts_held = n_routed_experts)."""
+    from diffusion_extensions_tpu_torch.ops import moe_rows_cuda as mr
+
+    held = e if case == "all" else MOE_CELL["held"]
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    scores = torch.randn(t, e, generator=gen, device=cuda)
+    if case == "cell":
+        scores[:, :held] += HELD_BIAS
+        scores[0, :held] += 100.0
+        scores[1, :held] -= 100.0
+    elif case == "none":
+        scores[:, :held] -= 100.0
+    top_i = scores.topk(k, dim=-1).indices
+    order, inv, _, offs = mr.dispatch_plan(top_i, 0, held)
+    return order, inv, offs, top_i < held
+
+
+def _nan_past(x, n):
+    x[n:] = float("nan")
+    return x
+
+
+def _moe_operands(cuda, case, seed=0, dtype=torch.bfloat16, t=MOE_CELL["t"], k=MOE_CELL["k"],
+                  d=MOE_CELL["d"], f=MOE_CELL["f"]):
+    """The routing, its n, and every pass's inputs and incoming gradients,
+    rows past n filled with NaN."""
+    order, inv, offs, mine = _moe_plan(cuda, case, seed, t=t, k=k)
+    n = int(offs[-1])
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    r = t * k
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device=cuda).to(dt)
+
+    return dict(order=order, inv=inv, offs=offs, mine=mine, n=n,
+                tokens=rnd(t, d, dt=torch.float32), w=torch.rand(t, k, generator=gen, device=cuda),
+                grad_xs=_nan_past(rnd(r, d), n), h1=_nan_past(rnd(r, 2 * f), n),
+                grad_h=_nan_past(rnd(r, f), n), ys=_nan_past(rnd(r, d), n),
+                grad_out=rnd(t, d, dt=torch.float32))
+
+
+def _grads(out, inputs, grad):
+    return torch.autograd.grad(out, inputs, grad)
+
+
+@pytest.mark.parametrize("case", ["cell", "none", "all"])
+def test_moe_rows_kernels_match_plain_versions(cuda, case):
+    """Each kernel, forward and backward, against its plain version on the
+    card at the cell's shapes, rows past n NaN in every input: the rows
+    under n and the per-token results equal the plain version's to the bit
+    (each rounds as PyTorch's kernels do, a token's k rows summed in the
+    order of PyTorch's reduction), all finite.  The combine's gradient of
+    the weights is a float32 dot product over d summed in another order
+    than PyTorch's: within 2 d 2^-24 sum |g y| of it, the bound of two
+    orders' rounding; 0 where a choice is not held.  Six launches."""
+    from diffusion_extensions_tpu_torch.ops import moe_rows_cuda as mr
+
+    ops = _moe_operands(cuda, case)
+    n, order, inv, offs, mine = ops["n"], ops["order"], ops["inv"], ops["offs"], ops["mine"]
+    t, k = mine.shape
+    assert {"cell": 0 < n < t * k // 8, "none": n == 0, "all": n == t * k}[case]
+    if case == "cell":
+        assert bool(mine[0].all()) and not bool(mine[1].any())
+    before = obs.counter("ops.moe_rows.launches")
+    got, want = {}, {}
+    for name, fn in (("kernel", mr), ("plain", None)):
+        res = got if fn else want
+        tokens = ops["tokens"].clone().requires_grad_(True)
+        xs = (mr.gather(tokens, order, inv, offs, torch.bfloat16) if fn else
+              mr.gather_ref(tokens, order, inv, offs, torch.bfloat16))
+        res["xs"] = xs.detach()[:n]
+        (res["tokens"],) = _grads(xs, [tokens], ops["grad_xs"])
+        h1 = ops["h1"].clone().requires_grad_(True)
+        h = mr.swiglu(h1, offs) if fn else mr.swiglu_ref(h1)
+        res["h"] = h.detach()[:n]
+        (dh1,) = _grads(h, [h1], ops["grad_h"])
+        res["h1"] = dh1[:n]
+        ys = ops["ys"].clone().requires_grad_(True)
+        w = ops["w"].clone().requires_grad_(True)
+        out = mr.combine(ys, w, inv, offs) if fn else mr.combine_ref(ys, w, inv, offs)
+        res["out"] = out.detach()
+        res["ys"], res["w"] = _grads(out, [ys, w], ops["grad_out"])
+        res["ys"] = res["ys"][:n]
+    torch.cuda.synchronize()
+    assert obs.counter("ops.moe_rows.launches") == before + 6
+    for key in ("xs", "tokens", "h", "h1", "out", "ys"):
+        assert got[key].dtype == want[key].dtype and got[key].shape == want[key].shape, key
+        assert torch.isfinite(got[key]).all(), key
+        assert torch.equal(got[key], want[key]), key
+    ys_rows = ops["ys"].float().index_select(0, inv).view(t, k, -1)
+    scale = torch.where(mine, (ops["grad_out"][:, None, :] * ys_rows).abs().sum(-1), 0.0)
+    assert torch.isfinite(got["w"]).all()
+    assert ((got["w"] - want["w"]).abs() <= 2 * MOE_CELL["d"] * 2.0**-24 * scale).all()
+    assert not got["w"][~mine].any()
+
+
+def test_moe_rows_kernels_touch_no_row_past_n(cuda):
+    """Each launch into outputs filled with NaN: the rows past n keep their
+    NaN bits (never written), the rows under n and every per-token output
+    are written and finite, though every input row past n is NaN (never
+    read)."""
+    from diffusion_extensions_tpu_torch.ops import moe_rows_cuda as mr
+
+    ops = _moe_operands(cuda, "cell", seed=3)
+    n, inv, offs = ops["n"], ops["inv"], ops["offs"]
+    t, k = ops["mine"].shape
+    d, f = MOE_CELL["d"], MOE_CELL["f"]
+
+    def nans(*shape, dt=torch.bfloat16):
+        return torch.full(shape, float("nan"), device=cuda, dtype=dt)
+
+    xs, h, dh1, grad_ys = nans(t * k, d), nans(t * k, f), nans(t * k, 2 * f), nans(t * k, d)
+    tok_grad, out, grad_w = nans(t, d, dt=torch.float32), nans(t, d, dt=torch.float32), nans(t, k, dt=torch.float32)
+    mr.launch_gather(ops["tokens"], ops["order"], offs, xs)
+    mr.launch_gather_backward(ops["grad_xs"], inv, offs, tok_grad)
+    mr.launch_swiglu(ops["h1"], offs, h)
+    mr.launch_swiglu_backward(ops["grad_h"], ops["h1"], offs, dh1)
+    mr.launch_combine(ops["ys"], ops["w"], inv, offs, out)
+    mr.launch_combine_backward(ops["grad_out"], ops["ys"], ops["w"], inv, offs, grad_ys, grad_w)
+    torch.cuda.synchronize()
+    for name, x in (("xs", xs), ("h", h), ("dh1", dh1), ("grad_ys", grad_ys)):
+        assert torch.isfinite(x[:n]).all(), name
+        assert torch.isnan(x[n:]).all(), name
+    for name, x in (("tokens' gradient", tok_grad), ("out", out), ("grad_w", grad_w)):
+        assert torch.isfinite(x).all(), name
+
+
+def test_grouped_products_read_no_row_past_n(cuda):
+    """What the kernels rest on: ``torch._grouped_mm`` with the groups'
+    ends ``offs`` reads no row past n, forward or backward.  NaN in those
+    rows of its input and of its incoming gradient leaves the rows under n
+    and both gradients as they are with zeros there."""
+    order, _, offs, _ = _moe_plan(cuda, "cell", seed=5)
+    n, r = int(offs[-1]), order.numel()
+    d, f = MOE_CELL["d"], MOE_CELL["f"]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    weight = (torch.randn(MOE_CELL["held"], d, 2 * f, generator=gen, device=cuda) * d**-0.5).bfloat16()
+    x = torch.randn(r, d, generator=gen, device=cuda).bfloat16()
+    g = torch.randn(r, 2 * f, generator=gen, device=cuda).bfloat16()
+    results = []
+    for fill in (0.0, float("nan")):
+        xx, ww, gg = x.clone(), weight.clone().requires_grad_(True), g.clone()
+        xx[n:], gg[n:] = fill, fill
+        xx.requires_grad_(True)
+        y = torch._grouped_mm(xx, ww, offs=offs)
+        dx, dw = torch.autograd.grad(y, [xx, ww], gg)
+        results.append((y[:n], dx[:n], dw))
+    for a, b in zip(*results):
+        assert torch.isfinite(b).all() and torch.equal(a, b)
+
+
+def test_moe_rows_kernels_take_float32_rows(cuda):
+    """Without autocast the rows stay float32: the same kernels, bit-equal
+    to the plain versions (at a smaller size)."""
+    from diffusion_extensions_tpu_torch.ops import moe_rows_cuda as mr
+
+    ops = _moe_operands(cuda, "cell", seed=7, dtype=torch.float32, t=2048, d=256, f=128)
+    n, order, inv, offs = ops["n"], ops["order"], ops["inv"], ops["offs"]
+    pairs = []
+    for fn in (True, False):
+        tokens = ops["tokens"].clone().requires_grad_(True)
+        xs = (mr.gather if fn else mr.gather_ref)(tokens, order, inv, offs, torch.float32)
+        (dt,) = _grads(xs, [tokens], ops["grad_xs"])
+        h1 = ops["h1"].clone().requires_grad_(True)
+        h = mr.swiglu(h1, offs) if fn else mr.swiglu_ref(h1)
+        (dh1,) = _grads(h, [h1], ops["grad_h"])
+        ys = ops["ys"].clone().requires_grad_(True)
+        out = (mr.combine if fn else mr.combine_ref)(ys, ops["w"], inv, offs)
+        (dys,) = _grads(out, [ys], ops["grad_out"])
+        pairs.append((xs[:n], dt, h[:n], dh1[:n], out, dys[:n]))
+    for a, b in zip(*pairs):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all() and torch.equal(a, b)
+
+
+def test_moe_rows_wrappers_refuse_what_the_kernels_cannot_take(cuda):
+    """float16 rows, a width off a multiple of 8, more than MAX_K choices,
+    operands on two devices: each raises, and nothing is launched."""
+    from diffusion_extensions_tpu_torch.ops import moe_rows_cuda as mr
+
+    offs = torch.tensor([4, 8], dtype=torch.int32, device=cuda)
+    idx = torch.arange(32, device=cuda)
+    before = obs.counter("ops.moe_rows.launches")
+    with pytest.raises(TypeError):
+        mr.swiglu(torch.zeros(32, 32, device=cuda, dtype=torch.float16), offs)
+    with pytest.raises(ValueError):
+        mr.gather(torch.zeros(4, 20, device=cuda), idx, idx, offs, torch.bfloat16)
+    with pytest.raises(ValueError):
+        mr.combine(torch.zeros(36, 16, device=cuda, dtype=torch.bfloat16), torch.zeros(4, 9, device=cuda),
+                   torch.arange(36, device=cuda), offs)
+    with pytest.raises(ValueError):
+        mr.combine(torch.zeros(32, 16, device=cuda, dtype=torch.bfloat16), torch.zeros(4, 8, device=cuda),
+                   idx, offs.cpu())
+    assert obs.counter("ops.moe_rows.launches") == before
