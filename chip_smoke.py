@@ -1,117 +1,51 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Kernel timings and full-width runs of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from the sources in this checkout (one
-nvcc per source, all started together; prints what ptxas says of each and,
-where cuobjdump is there, the SASS instruction counts), holds each against
-its plain PyTorch version on the card (Adam's update at the leaf sets of the
-benchmark's two configurations, timed beside the plain version and, with
-float32 moments, ``torch.optim.Adam(fused=True)``; the experts layer's six
-row-pass kernels at the dsv2lite-aircraft-train cell's shapes, forward and
-backward, at ~10,330 held rows and at all T k rows, timed beside their
-bytes bound and the plain versions), then drives seventeen
-paths at full size, each with the kernels' launch counts set to 0 just
-before it and read just after:
+The port's gates on the card are ``tests/test_torch_cuda.py`` (each kernel
+against its plain PyTorch version, at the sizes timed here among others,
+and the card against the CPU at small sizes).  This script does what needs
+the full width:
 
-* the aircraft sampling path (PlaneNet dim 512 / 4 heads / 4 layers, random
-  weights from a seed, batch 32 x 256 points, ProjectedSO3Diffusion with
-  T = 1000): a 250-step ancestral chain (T = 250; the 1000-step chain runs
-  under the training phase's --test), the 50-step Heun
-  probability-flow sampler (whose score runs the IGSO(3) kernel) and
-  IsotropicGaussianSO3.log_prob on 50,000 rotations;
-* the Bingham evaluation path, ``experiments/bingham.py --test --sampler-ab``
-  on the "lcr" preset: RotPredict d_model 65 (seeded init), SO3Diffusion
-  T = 1000, 20,000 chains per sampler row, and MMD against 20,000 target
-  rotations, whose three 20k x 20k sums run the MMD kernel;
-* aircraft training, ``experiments/aircraft.py`` at the same full width:
-  10 warm-up + 50 timed steps in fp32, with ``--bf16``, with ``--opt-impl
-  fused``, with ``--steps-per-call 8`` (one CUDA graph replayed a step) and
-  with ``--bf16 --steps-per-call 8``; 100 steps whose loss must
-  fall, a ``--resume`` of 20 more; 2N steps against N + save + restore + N
-  and against the same steps replayed from a CUDA graph, to the bit, ``--test`` on the written checkpoint (one chain per
-  shape) and 32 Heun-50 chains on the trained weights (100 launches of the
-  IGSO(3) kernel);
-* Bingham training, ``experiments/bingham.py lcr --steps 2000 --mmd-every
-  1000``: two online MMD evaluations (6 launches of the MMD kernel), the
-  curve file, then ``--test`` on the written checkpoint;
-* the protein docking path at the headline width (ProtNet dim 1024 / 8 heads
-  / t_depth 12 / c_depth 8 with frame_pool, cross_depth 2, rel_frame and
-  equiv_head: 163,077,652 parameters, seeded init, its output layer scaled
-  by 1e-2 for sampling; batch 16 over the 16 synthetic pairs;
-  ProjectedSE3Diffusion T = 1000, clip_shift 75): the
-  forward in float32 and bf16, then ``experiments/protein.py --test --bf16``
-  with DDIM-50 (64 poses), probability-flow 50, Heun-25 (200 launches of the
-  IGSO(3) kernel), Picard-10 and the 1000-step ancestral chain (16 poses);
-* protein training at the same width: 10 + 96 steps with ``--bf16`` and
-  16 + 96 with ``--bf16 --opt-impl fused --opt-state-dtype bf16
-  --steps-per-call 8``, 200 steps of the latter whose loss must fall,
-  ``--test`` on that checkpoint, 2N replayed steps against N + save +
-  restore + N, and two epochs of ``--epoch-accum``;
-* the aircraft Euler arm (``--so3`` off: ProjectedGaussianDiffusion, l1) at
-  the aircraft width: 10 + 50 ``--bf16 --steps-per-call 8`` steps, 100 fp32
-  steps whose loss must fall, ``--test --euler-init haar`` on that checkpoint
-  (a 1000-step chain a shape over 32 shapes, gated finite and on SO(3));
-* the protein Euler arm (``--se3`` off: ProtNet(se3=False), the same
-  163,077,652 weights, ProjectedEulerDiffusion): the forward in float32 and
-  bf16, 16 + 96 steps with the production flags, ``--test`` with the
-  1000-step ancestral chain, one sample a pose over 16 poses (the seeded
-  init, head scaled by PROTEIN_HEAD_SCALE), rotations gated on SO(3) and
-  shifts on finiteness;
-* ``experiments/so3_toy.py``: 2000 steps at K = 16, then ``--test`` with the
-  ancestral, DDIM-50 and probability-flow-50 samplers over 512 chains;
-* ``experiments/lock.py``, both ``--param`` arms: 2000 eager steps each,
-  then ``--test`` over 512 chains (|axis . y|, the in-range fraction);
-* ``experiments/jigsaw.py`` at the JAX driver's width (CoordConv size 128,
-  145,378 parameters, seeded init, batch 256, ProjectedGaussianDiffusion
-  T = 1000, a fresh puzzle a step rendered on the card): 10 + 50 timed eager
-  steps (ms, TFLOP/s against the convolutions' FLOPs, peak memory), 200
-  steps whose loss must fall, 2N steps against N + save + restore + N to
-  the bit, 20 steps twice with cuDNN's deterministic algorithms off and on
-  (same bits? ms a step), then ``--test``: the 1000-step chain over 64
-  samples and the placement error in pixels;
-* the diagnostics: ``diagnostics se3-path`` at its defaults (14 poses x
-  1000 forward steps, each an IGSO3xR3 draw, gated on SO(3) and finite
-  shifts), ``grad_check`` at its defaults (2000 Adam steps, the loss must
-  halve), and ``IGSO3xR3.log_prob`` over 50,000 poses (kernel 1) against
-  the CPU's; no figure (the card's machine has no matplotlib);
-* the Switch-MoE aircraft arm (bench.py's moe_train_e4: the aircraft width
-  with 4 experts, scatter dispatch, T = 8,192 tokens a layer, C = 2,560)
-  through ``aircraft.main``: 208 replayed ``--bf16 --steps-per-call 8``
-  steps (ms, steps/s, peak memory, falling loss, expert fractions, the aux
-  on the trained weights), the one-hot dispatch timed beside the scatter
-  one in turns, replayed and resumed steps against eager ones to the bit,
-  then ``--test`` over 32 shapes (1000-step chains, gated on SO(3));
-* the DeepSeek-V2 trunk (``--trunk dsv2lite-ep8``: 1 dense + 4 MoE layers
-  at DeepSeek-V2-Lite's widths, 8 of 64 experts held, 487,890,436
-  parameters) at the dsv2lite-aircraft-train cell's size through
-  ``aircraft.main``: 32 replayed bf16 K = 8 steps, then one profiled call
-  of a fresh step (Adam's kernel once a step, the six row-pass kernels a
-  MoE layer a step, the held experts' rows);
-* the multi-process code at world size 1 over NCCL (a group made in this
-  process; the card's machine has one GPU): 16 replayed K = 8 steps through
-  the data-parallel all-reduce against the same steps without a group, to
-  the bit, the all-reduce issued inside the capture; then ``--fsdp``
-  (FSDP2) for 20 eager steps against the plain eager steps.
-* the system's last entry points: ``bench.main(["--quick"])`` (bench_torch:
-  the aircraft headline and bench.py's eleven rows at its configurations,
-  12 launches of the MMD kernel by mmd_eval, every measurement finite and
-  > 0); ``sweep.main`` over a two-point lr grid of the lock driver, one
-  subprocess a point, ranked in a temporary directory with the committed
-  ``sweeps/`` untouched; ``probe_protein`` at the headline width on a
-  checkpoint written here (the 20 block MSEs finite).
+* builds every CUDA kernel of the port from the sources in this checkout
+  (one nvcc per source, all started together; prints what ptxas says of
+  each and, where cuobjdump is there, the SASS instruction counts);
+* times each kernel of ``KERNELS`` at its cases, beside its plain version
+  and its bound on the H100 (bytes or operations), and measures how far
+  its outputs there lie from the plain version's;
+* drives each path of ``PATHS`` at full size, with the kernels' launch
+  counts set to 0 just before it and read just after, and holds it to the
+  gates that need the full width: the kernels the path must launch, a
+  falling loss, resumes and replays to the bit, ``--test`` on the written
+  checkpoint finite and on SO(3).
 
-Small runs hold the card against the CPU: sampling (aircraft Heun, Bingham
-DDIM), training, the protein slice, and the Euler arms (an aircraft Euler
-chain, protein Euler steps, five lock-arm losses per arm), and the jigsaw
-slice (images, forward, loss, a 20-step chain), and the MoE PlaneNet
-(forward, loss with the aux, routing; both dispatches).
-Every phase prints JSON lines, and the seconds each phase took; any failure
-raises and exits non-zero.  The last lines are the kernels' summary, the
+The paths: aircraft sampling (PlaneNet dim 512 / 4 heads / 4 layers, batch
+32 x 256, T = 1000: the ancestral chain, Heun-50, ``log_prob`` on 50,000
+rotations); the Bingham evaluation (``bingham.py --test --sampler-ab``,
+20,000 chains a sampler, MMD against 20,000 targets); aircraft training
+(timed fp32, bf16, fused-Adam and replayed K = 8 variants, a falling loss,
+a resume, 2N steps against N + save + restore + N and against replayed
+steps, ``--test``, Heun-50 on the trained weights); Bingham training with
+its online MMD curve; protein docking at the headline width (ProtNet dim
+1024 / 8 heads / t_depth 12 / c_depth 8 with every flag, 163,077,652
+parameters: the forward, then each sampler row of ``--test``) and its
+training (timed variants, a falling loss, ``--test``, a replayed resume,
+``--epoch-accum``); the Euler arms of both; ``so3_toy``; both ``lock``
+arms; ``jigsaw`` at the JAX package's width (timed steps, a falling loss,
+cuDNN's determinism and its cost, ``--test``); the diagnostics at their
+defaults; the Switch-MoE aircraft arm (bench.py's moe_train_e4, both
+dispatches timed); the DeepSeek-V2 trunk at the dsv2lite-aircraft-train
+cell's size (replayed steps, then one profiled call); ``--fsdp`` over a
+NCCL group of one; ``bench_torch --quick``; a two-point ``sweep``; and
+``probe_protein`` on a checkpoint written here.
+
+Every phase prints JSON lines and the seconds it took; any failure raises
+and exits non-zero.  The last lines are the kernels' summary (``{"kernels":
+[...]}``, each kernel's timings, its distance from the plain version, its
+SASS counts and its launches on each path, ``launches_by_path``), the
 card's name and power limit as nvidia-smi reports them, and
-{"ok": true, "device": {...}}.  The kernels' summary has each kernel's
-launches on each path (``launches_by_path``).
+{"ok": true, "device": {...}}.
 
 Imports torch, numpy and the port only.  There is no CPU path: without a
 CUDA device the script exits non-zero before printing any result.
@@ -136,14 +70,13 @@ import numpy as np
 import torch
 
 from diffusion_extensions_tpu_torch import bench, obs, sweep
-from diffusion_extensions_tpu_torch.data.jigsaw import JigsawPuzzle, puzzle_rows
+from diffusion_extensions_tpu_torch.data.jigsaw import puzzle_rows
 from diffusion_extensions_tpu_torch.data.pdb import (
     pad_prot_batch,
     synthetic_prot_pair,
     to_device,
 )
 from diffusion_extensions_tpu_torch.data.shapenet import BatchLoader, synthetic_planes
-from diffusion_extensions_tpu_torch.data.synthetic import bingham_dist
 from diffusion_extensions_tpu_torch.experiments import (
     aircraft,
     bingham,
@@ -157,32 +90,20 @@ from diffusion_extensions_tpu_torch.experiments import (
 )
 from diffusion_extensions_tpu_torch.experiments.aircraft import subsample_points
 from diffusion_extensions_tpu_torch.flops import planenet_flops, protein_flops
-from diffusion_extensions_tpu_torch.models.coordconv import STAGES, WIDTH, CoordConv
+from diffusion_extensions_tpu_torch.models.coordconv import STAGES, WIDTH
 from diffusion_extensions_tpu_torch.models.planenet import PlaneNet
 from diffusion_extensions_tpu_torch.models.projections import PointCloudProj, ProtProjection
 from diffusion_extensions_tpu_torch.models.protnet import ProtNet
-from diffusion_extensions_tpu_torch.models.rot_predict import RotPredict
 from diffusion_extensions_tpu_torch.ops import _build, adam_cuda, igso3_cuda, mmd_cuda, moe_rows_cuda
 from diffusion_extensions_tpu_torch.ops.igso3 import (
     IGSO3xR3,
     IsotropicGaussianSO3,
     igso3_log_density,
 )
-from diffusion_extensions_tpu_torch.ops.metrics import mmd
 from diffusion_extensions_tpu_torch.ops.se3 import AffineT
-from diffusion_extensions_tpu_torch.ops.so3 import (
-    exp_skewvec,
-    haar_rotations,
-    quat_to_rmat,
-    rmat_to_euler,
-    rotation_angle,
-)
+from diffusion_extensions_tpu_torch.ops.so3 import exp_skewvec, rotation_angle
 from diffusion_extensions_tpu_torch.parallel.dp import make_dp_train_step
-from diffusion_extensions_tpu_torch.processes.euler import ProjectedEulerDiffusion
-from diffusion_extensions_tpu_torch.processes.r3 import ProjectedGaussianDiffusion
-from diffusion_extensions_tpu_torch.processes.se3 import ProjectedSE3Diffusion
-from diffusion_extensions_tpu_torch.processes.so3 import ProjectedSO3Diffusion, SO3Diffusion
-from diffusion_extensions_tpu_torch.train import optim
+from diffusion_extensions_tpu_torch.processes.so3 import ProjectedSO3Diffusion
 from diffusion_extensions_tpu_torch.train.optim import make_optimizer
 from diffusion_extensions_tpu_torch.train.state import (
     TrainState,
@@ -206,12 +127,6 @@ IGSO3_BYTES, IGSO3_BYTES_ONE_SIGMA, IGSO3_OPS = 16, 12, 89
 # 0.5 scale 1, c = 0.5 (tr - 1) 2, atan2 1, the -sqrt(2) scale 1, exp 1 and
 # the accumulate 1
 MMD_BYTES_PER_ROT, MMD_OPS_PER_PAIR = 36, 67
-# gates of tests/test_pallas.py
-LOGF_TOL = (1e-5, 1e-5)  # rtol, atol
-SCORE_TOL = (1e-4, 5e-4)
-MMD_SUM_RTOL = 1e-4
-MMD_SWEEP_RTOL = 1e-5  # one X against rotations at theta dense on [0, pi]
-MMD_TOL = (1e-3, 1e-5)
 # ancestral_steps: the sampling path runs its ancestral chain on a process
 # with T = 250; the 1000-step chain at this width is run, and timed, by the
 # training phase's --test on its checkpoint
@@ -241,7 +156,6 @@ PROTEIN = dict(dim=1024, heads=8, t_depth=12, c_depth=8, cross_depth=2, batch=16
 ADAM_SETS = {"planenet-d512": ("planenet", "optax", "f32"),
              "protnet-d1024-prod": ("protnet", "fused", "bf16")}
 ADAM_BYTES = {"f32": 28, "bf16": 20}
-ADAM_CHECK_STEPS = 3
 # the experts layer's row passes at the dsv2lite-aircraft-train cell's shapes:
 # T tokens, top k of e experts, `held` of them held, widths d and f.
 # held_bias lowers the held experts' scores so that about 10,330 of the
@@ -287,19 +201,19 @@ PROTEIN_EULER_ARGV = [a for a in PROTEIN_ARGV if a != "--se3"]
 SUITES = dict(toy_steps=2000, toy_k=16, lock_steps=2000, eval_batch=512)
 # the jigsaw suite at the JAX driver's width (CoordConv size 128, batch 256,
 # T = 1000, seeded init): 10 + 50 timed eager steps, 200 whose loss must fall
-# (cut from 40,000), N of N + save + restore + N, steps timed with and
-# without cuDNN's deterministic algorithms, --test over 64 chains
+# (cut from 40,000), steps timed with and without cuDNN's deterministic
+# algorithms, --test over 64 chains
 JIGSAW = dict(size=128, batch=256, timesteps=1000, warmup=10, timed=50, fall_steps=200,
-              exact_n=10, det_steps=20, eval_batch=64)
+              det_steps=20, eval_batch=64)
 # the diagnostics: se3-path and grad_check at their defaults, IGSO3xR3.log_prob
-# over 50,000 poses on the card against the CPU
+# over 50,000 poses
 DIAG = dict(se3_samples=14, se3_steps=1000, grad_iters=2000, log_prob_n=50_000)
 # the Switch-MoE aircraft arm (bench.py's moe_train_e4): replayed --bf16 K = 8
 # steps, the logging interval (each row runs the probe and reads the expert
 # fractions)
 MOE = dict(experts=4, steps=208, print_every=8)
-# world size 1 over NCCL: replayed K = 8 steps through the all-reduce, eager
-# --fsdp steps
+# a NCCL group of one: replayed --bf16 K = 8 steps through the all-reduce,
+# and --fsdp's eager steps
 DP_WORLD1 = dict(steps=16, fsdp_steps=20)
 # the DeepSeek-V2 trunk (--trunk dsv2lite-ep8) at the dsv2lite-aircraft-train
 # cell's size: replayed bf16 K = 8 steps through aircraft.main, then one
@@ -312,6 +226,11 @@ BENCH_MEASUREMENTS, BENCH_MMD_LAUNCHES = 12, 12
 SWEEP = dict(grid={"lr": [1e-4, 3e-4]}, steps=50, print_every=10)
 # the probe: the headline flags' checkpoint after one replayed K = 8 call
 PROBE = dict(train_steps=8)
+# kernel 1's timed cases: (key suffix in the kernels line, n, one sigma); the
+# unsuffixed case is the aircraft batch
+IGSO3_CASES = [("", PATH["batch"], False), ("_16", PROTEIN["batch"], False), ("_20k", BINGHAM_N, False),
+               ("_1m", 2**20, False), ("_50k_one_sigma", PATH["log_prob_n"], True),
+               ("_1m_one_sigma", 2**20, True)]
 
 
 def emit(phase: str, **fields) -> None:
@@ -324,10 +243,7 @@ def sync() -> None:
 
 def kernel_launches() -> dict:
     """Each kernel's launches since the last ``obs.reset()``."""
-    return {"igso3_logpdf_score": obs.counter("ops.igso3.launches"),
-            "gaussian_kernel_sum": obs.counter("ops.mmd.launches"),
-            "adam_update": obs.counter("ops.adam.launches"),
-            "moe_rows": obs.counter("ops.moe_rows.launches")}
+    return {name: obs.counter(spec["counter"]) for name, spec in KERNELS.items()}
 
 
 def time_cuda(fn, iters: int, warmup: int = 10) -> float:
@@ -414,20 +330,6 @@ def gate(got: torch.Tensor, want: torch.Tensor, rtol: float, atol):
     diff = (got - want).abs()
     return float(diff.max()), float((diff / (atol + rtol * want.abs())).max())
 
-
-def score_atol_across_libraries(t: torch.Tensor) -> torch.Tensor:
-    """The score's atol against a plain version run by another math library
-    (the CPU's).  For t >= 1e-4 the score is a difference of two terms of
-    size 1/t, each rounded on its own, so two correct evaluations may differ
-    by an ulp of 1/t in each: max(5e-4, 2 ulp(1/t)), which is 5e-4 from
-    t = 4.9e-4 up and at most 1.95e-3 (at t = 1e-4).  Below 1e-4 the score
-    takes its small-t limit and keeps 5e-4."""
-    inv = 1.0 / t.clamp(min=1e-4)
-    ulp = torch.nextafter(inv, torch.full_like(inv, float("inf"))) - inv
-    return torch.where(t >= 1e-4, (2.0 * ulp).clamp(min=SCORE_TOL[1]),
-                       torch.full_like(inv, SCORE_TOL[1]))
-
-
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -445,15 +347,14 @@ def phase_device() -> str:
 def phase_build() -> dict:
     """The kernels' nvcc builds, started together; returns each kernel's
     SASS instruction counts, or "not available" without cuobjdump."""
-    kernels = {"igso3_logpdf_score": igso3_cuda, "gaussian_kernel_sum": mmd_cuda,
-               "adam_update": adam_cuda, "moe_rows": moe_rows_cuda}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        futures = {name: pool.submit(mod.build) for name, mod in kernels.items()}
-        for fut in futures.values():
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        futures = [pool.submit(spec["module"].build) for spec in KERNELS.values()]
+        for fut in futures:
             fut.result()
     sass = {}
-    for name, mod in kernels.items():
+    for name, spec in KERNELS.items():
+        mod = spec["module"]
         ptxas = [ln.strip() for ln in mod.build_log.splitlines() if "ptxas" in ln]
         sass[name] = _build.sass_summary(mod.library_path) or "not available"
         emit("build", kernel=name, seconds=time.perf_counter() - t0, ptxas=ptxas,
@@ -491,102 +392,21 @@ def sass_instructions(fns) -> dict | str:
     return {name: fn["instructions"] for name, fn in fns.items()}
 
 
-def allocations() -> int:
-    return torch.cuda.memory_stats()["allocation.all.allocated"]
-
-
-def phase_kernel_check() -> dict:
-    """The kernel against its plain version on the card, then timings."""
-    cases = {}
-    for n in (PROTEIN["batch"], PATH["batch"], BINGHAM_N, 1000, 2**20 + 37):
-        cases[str(n)] = kernel_inputs(n, seed=n)
-    t7 = torch.linspace(0.1, 3.0, 7, device="cuda").reshape(7, 1)
-    cases["(7,1)x(1,)"] = (t7, torch.tensor([0.5], device="cuda"))
-    # the log_prob shape: many angles, one sigma
-    t50k = kernel_inputs(PATH["log_prob_n"], seed=50)[0]
-    cases["50000 x one sigma"] = (t50k, torch.tensor(0.5, device="cuda"))
-    # the cancellation band and the switch between the kernel's two paths
-    band = torch.from_numpy(np.geomspace(1e-4, 5e-2, 4096).astype(np.float32)).cuda()
-    for sigma in (0.05, 0.4, 1.0, 1.5):
-        cases[f"band sigma {sigma}"] = (band, torch.tensor(sigma, device="cuda"))
-    # a t that starts off a 16-byte boundary, and one t against many sigma
-    t1k, s1k = cases["1000"]
-    cases["unaligned"] = (t1k[1:], s1k[1:])
-    cases["one t"] = (torch.tensor(0.7, device="cuda"), s1k)
-    worst = {"logf_abs": 0.0, "logf_gate": 0.0, "score_abs": 0.0, "score_gate": 0.0}
-    for name, (t, s) in cases.items():
-        logf, score = igso3_cuda.igso3_logpdf_score(t, s)
-        sync()
-        assert torch.isfinite(logf).all() and torch.isfinite(score).all(), name
-        # against the plain version on the card (which rounds as the kernel's
-        # exact path does: atol 5e-4 everywhere), and on the CPU
-        for dev in ("cuda", "cpu"):
-            ref_logf, ref_score = igso3_cuda.igso3_logpdf_score_ref(t.to(dev), s.to(dev))
-            assert logf.shape == ref_logf.shape and score.shape == ref_score.shape, name
-            la, lg = gate(logf.to(dev), ref_logf, *LOGF_TOL)
-            score_atol = SCORE_TOL[1] if dev == "cuda" else score_atol_across_libraries(t.cpu())
-            sa, sg = gate(score.to(dev), ref_score, SCORE_TOL[0], score_atol)
-            emit("kernel_check", kernel="igso3_logpdf_score", case=name, plain_on=dev,
-                 logf_max_abs_err=la, logf_gate_ratio=lg, score_max_abs_err=sa,
-                 score_gate_ratio=sg)
-            if dev == "cuda":
-                for k, v in (("logf_abs", la), ("score_abs", sa)):
-                    worst[k] = max(worst[k], v)
-            for k, v in (("logf_gate", lg), ("score_gate", sg)):
-                worst[k] = max(worst[k], v)
-    ok = worst["logf_gate"] <= 1.0 and worst["score_gate"] <= 1.0
-    if not ok:
-        raise AssertionError(f"igso3_logpdf_score disagrees with its plain version: {worst}")
-
-    # on its exact path (t < EXACT_BELOW) the kernel is the plain version to the
-    # bit; below t = 1e-4 the score's limit may differ by an ulp (of ~1e-5),
-    # because on the card PyTorch divides t by 12 as a product with 1/12
-    t, s = kernel_inputs(BINGHAM_N, seed=2)
-    below = float(np.nextafter(np.float32(igso3_cuda.EXACT_BELOW), np.float32(0)))
-    t = (t * (below / np.pi)).clamp(max=below)
-    logf, score = igso3_cuda.igso3_logpdf_score(t, s)
-    ref_logf, ref_score = igso3_cuda.igso3_logpdf_score_ref(t, s)
-    direct = t >= 1e-4
-    exact = bool(torch.equal(logf, ref_logf) and torch.equal(score[direct], ref_score[direct]))
-    _, limit_gate = gate(score[~direct], ref_score[~direct], *SCORE_TOL)
-    emit("kernel_check", kernel="igso3_logpdf_score", case="exact path", bit_identical=exact,
-         cheap_elements=int(igso3_cuda.cheap_domain(t, s).sum()),
-         elements_below_1e_4=int((~direct).sum()), limit_gate_ratio=limit_gate)
-    if not (exact and limit_gate <= 1.0):
-        raise AssertionError("igso3_logpdf_score: the exact path differs from the plain version")
-
-    # one sigma is read in place: the call allocates its outputs and nothing else
-    t, s = cases["50000 x one sigma"]
-    sigma_arg = igso3_cuda.plan_operands(t, s)[3]
-    before = allocations()
-    igso3_cuda.igso3_logpdf_score(t, s)
-    made = allocations() - before
-    emit("kernel_check", kernel="igso3_logpdf_score", case="one sigma in place",
-         allocations=made, passed_as_it_is=sigma_arg is s)
-    if made != 1 or sigma_arg is not s:
-        raise AssertionError(f"one sigma: {made} allocations in the call (expected 1)")
-
-    # ms / plain_ms: device time per call (CUDA graph replay);
-    # call_ms / plain_call_ms: per eager call from Python, what a chain pays
-    timing = {}
-    shapes = [(n, False) for n in (PROTEIN["batch"], PATH["batch"], BINGHAM_N, 2**20)]
-    shapes += [(PATH["log_prob_n"], True), (2**20, True)]
-    for n, one_sigma in shapes:
+def igso3_cases():
+    """Kernel 1 at IGSO3_CASES: ms / plain_ms device time a call (CUDA graph
+    replay); call_ms / plain_call_ms an eager call from Python, what a
+    chain pays."""
+    for suffix, n, one_sigma in IGSO3_CASES:
         t, s = kernel_inputs(n, seed=1)
         if one_sigma:
             s = torch.tensor(0.5, device="cuda")
         kernel = lambda: igso3_cuda.igso3_logpdf_score(t, s)  # noqa: E731
         plain = lambda: igso3_cuda.igso3_logpdf_score_ref(t, s)  # noqa: E731
         bound_ms, bound_by = igso3_bound_ms(n, one_sigma)
-        key = f"{n} one sigma" if one_sigma else n
-        timing[key] = dict(
-            ms=time_graph(kernel), plain_ms=time_graph(plain, reps=20),
-            call_ms=time_cuda(kernel, 1000), plain_call_ms=time_cuda(plain, 100),
-            bound_ms=bound_ms, bound_by=bound_by,
-        )
-        emit("kernel_time", kernel="igso3_logpdf_score", n=n, one_sigma=one_sigma,
-             **timing[key])
-    return {"worst": worst, "timing": timing, "pass": ok}
+        yield suffix, dict(zip(("logf", "score"), kernel())), dict(zip(("logf", "score"), plain())), \
+            igso3_cuda.GATES, dict(
+            n=n, ms=time_graph(kernel), plain_ms=time_graph(plain, reps=20), call_ms=time_cuda(kernel, 1000),
+            plain_call_ms=time_cuda(plain, 100), bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def rotations(n: int, seed: int, scale: float = 1.0) -> torch.Tensor:
@@ -594,104 +414,17 @@ def rotations(n: int, seed: int, scale: float = 1.0) -> torch.Tensor:
     return exp_skewvec(torch.from_numpy(v).cuda())
 
 
-def pi_pairs(n: int, seed: int):
-    """X random and Y = X P, with P an exact rotation by pi (2 u u^T - I,
-    float64, then cast), so every diagonal pair is at theta = pi."""
-    x = rotations(n, seed)
-    u = np.random.default_rng(seed + 1).standard_normal((n, 3))
-    u /= np.linalg.norm(u, axis=-1, keepdims=True)
-    p = torch.from_numpy(2.0 * u[:, :, None] * u[:, None, :] - np.eye(3)).cuda()
-    return x, (x.double() @ p).float()
-
-
-def theta_sweep(m: int = 4096):
-    """One X against m rotations X exp(theta axis), theta dense on [0, pi]
-    with both ends (float64, then cast); also sum exp(-sqrt(2) theta)."""
-    theta = np.linspace(0.0, np.pi, m)
-    axis = np.array([0.3, -0.5, 0.81])
-    axis /= np.linalg.norm(axis)
-    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
-    rel = (np.eye(3) + np.sin(theta)[:, None, None] * k
-           + (1 - np.cos(theta))[:, None, None] * (k @ k))
-    x = rotations(1, 21).double()
-    y = (x @ torch.from_numpy(rel).cuda()).float()
-    return x.float(), y, float(np.exp(-np.sqrt(2.0) * theta).sum())
-
-
-def plain_mmd(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    def s(a, b):
-        return mmd_cuda.gaussian_kernel_sum_ref(a, b, chunksize=4000)
-
-    n, m = x.shape[0], y.shape[0]
-    return s(x, x) / n**2 + s(y, y) / m**2 - 2.0 * s(x, y) / (n * m)
-
-
-def phase_mmd_check() -> dict:
-    """The MMD kernel against its plain version on the card (rtol 1e-4 on
-    each sum, 1e-5 on the theta sweep), mmd_cuda against the plain MMD
-    (rtol 1e-3, atol 1e-5), two calls at 20k x 20k bit-identical, then
-    timings at the path's 20k x 20k."""
+def mmd_cases():
+    """Kernel 2 at the Bingham path's 20k x 20k, an eager call timed (one
+    call is long enough), the plain version summed in 4000 x 4000 blocks."""
     n = BINGHAM_N
-    tile_n, tile_m = mmd_cuda.tile_shape()
-    emit("kernel_check", kernel="gaussian_kernel_sum", case="tile", x_rows=tile_n, y_rows=tile_m)
-    sweep_x, sweep_y, sweep_sum = theta_sweep()
-    cases = {
-        "theta sweep 1x4096": (sweep_x, sweep_y),
-        # a ragged tile in each direction of the built tile shape
-        "under one tile": (rotations(tile_n - 3, 13), rotations(tile_m - 1, 14)),
-        "one column": (rotations(tile_n + 5, 15), rotations(1, 16)),
-        "tile plus one": (rotations(tile_n + 1, 17), rotations(tile_m + 1, 18, 0.3)),
-        "1x1": (rotations(1, 1), rotations(1, 2)),
-        "257x130": (rotations(257, 3), rotations(130, 4)),
-        "300x200": (rotations(300, 5), rotations(200, 6, 0.3)),
-        "4096x4096": (rotations(4096, 7), rotations(4096, 8, 0.5)),
-        f"{n}x{n}": (rotations(n, 9), rotations(n, 10, 0.7)),
-        "X=Y 2000": (rotations(2000, 11),) * 2,
-        "pi pairs 2000": pi_pairs(2000, 12),
-    }
-    worst_abs = worst_rel = 0.0
-    for name, (x, y) in cases.items():
-        got = mmd_cuda.gaussian_kernel_sum(x, y)
-        want = mmd_cuda.gaussian_kernel_sum_ref(x, y, chunksize=4000)
-        sync()
-        abs_err = float((got - want).abs())
-        rel_err = abs_err / float(want.abs())
-        rtol = MMD_SWEEP_RTOL if name.startswith("theta sweep") else MMD_SUM_RTOL
-        emit("kernel_check", kernel="gaussian_kernel_sum", case=name, sum=float(got),
-             plain_sum=float(want), abs_err=abs_err, rel_err=rel_err, rtol=rtol)
-        if not (torch.isfinite(got) and rel_err <= rtol):
-            raise AssertionError(f"gaussian_kernel_sum {name}: {float(got)} vs plain "
-                                 f"{float(want)} (rel err {rel_err})")
-        worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel_err)
-    sweep_rel = abs(float(mmd_cuda.gaussian_kernel_sum(sweep_x, sweep_y)) - sweep_sum) / sweep_sum
-    emit("kernel_check", kernel="gaussian_kernel_sum", case="theta sweep vs float64",
-         rel_err=sweep_rel, rtol=MMD_SWEEP_RTOL)
-    if not sweep_rel <= MMD_SWEEP_RTOL:
-        raise AssertionError(f"gaussian_kernel_sum theta sweep: rel err {sweep_rel}")
-    for name in ("300x200", f"{n}x{n}"):
-        x, y = cases[name]
-        got, want = float(mmd_cuda.mmd_cuda(x, y)), float(plain_mmd(x, y))
-        emit("kernel_check", kernel="mmd_cuda", case=name, mmd=got, plain_mmd=want,
-             abs_err=abs(got - want))
-        if not abs(got - want) <= MMD_TOL[1] + MMD_TOL[0] * abs(want):
-            raise AssertionError(f"mmd_cuda {name}: {got} vs plain {want}")
-    x, y = cases[f"{n}x{n}"]
-    first, second = mmd_cuda.gaussian_kernel_sum(x, y), mmd_cuda.gaussian_kernel_sum(x, y)
-    same = bool(torch.equal(first, second))
-    emit("kernel_check", kernel="gaussian_kernel_sum", case="determinism", bit_identical=same)
-    if not same:
-        raise AssertionError(f"two calls differ: {float(first)} vs {float(second)}")
-
+    x, y = rotations(n, 9), rotations(n, 10, 0.7)
+    kernel = lambda: mmd_cuda.gaussian_kernel_sum(x, y)  # noqa: E731
+    plain = lambda: mmd_cuda.gaussian_kernel_sum_ref(x, y, chunksize=4000)  # noqa: E731
     bound_ms, bound_by = mmd_bound_ms(n, n)
-    timing = dict(
-        n=n, m=n,
-        ms=time_cuda(lambda: mmd_cuda.gaussian_kernel_sum(x, y), 20, warmup=3),
-        plain_ms=time_cuda(lambda: mmd_cuda.gaussian_kernel_sum_ref(x, y, chunksize=4000), 3,
-                           warmup=1),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-    )
-    emit("kernel_time", kernel="gaussian_kernel_sum", **timing)
-    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, "timing": timing}
+    yield "", {"sum": kernel()}, {"sum": plain()}, mmd_cuda.GATES, dict(
+        n=n, m=n, ms=time_cuda(kernel, 20, warmup=3), plain_ms=time_cuda(plain, 3, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def adam_leaf_shapes(kind: str) -> list:
@@ -708,65 +441,47 @@ def adam_leaf_shapes(kind: str) -> list:
     return [p.shape for p in model.parameters()]
 
 
-def phase_adam_check() -> dict:
-    """Adam's update kernel at the leaf sets of the benchmark's two
-    configurations (``ADAM_SETS``): ``ADAM_CHECK_STEPS`` steps of
-    ``Adam.step()`` against the same steps through the plain version, to
-    the bit, one launch a step; then device ms a call (a CUDA graph
+def adam_cases():
+    """Kernel 3 at the leaf sets of the benchmark's two configurations
+    (``ADAM_SETS``), the kernel and the plain version each from one state:
+    their first updates compared, then device ms a call (a CUDA graph
     replayed) of the kernel, of the plain version and, with float32
     moments, of ``torch.optim.Adam(fused=True)`` as a yardstick the port
     never calls, and the eager call's ms (host and device)."""
-    out = {}
     for name, (kind, impl, dtype) in ADAM_SETS.items():
         shapes = adam_leaf_shapes(kind)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        init = [torch.randn(s, device="cuda", generator=gen) * 0.02 for s in shapes]
+        params = [torch.randn(s, device="cuda", generator=gen) * 0.02 for s in shapes]
         grads = [torch.randn(s, device="cuda", generator=gen) * 1e-3 for s in shapes]
-        mine = [(f"w{i}", torch.nn.Parameter(w.clone())) for i, w in enumerate(init)]
-        ref = [(f"w{i}", torch.nn.Parameter(w)) for i, w in enumerate(init)]
-        kernel = make_optimizer(mine, 1e-4, impl=impl, state_dtype=dtype)
-        plain = make_optimizer(ref, 1e-4, impl=impl, state_dtype=dtype)
-        for (_, p), (_, q), g in zip(mine, ref, grads):
-            p.grad, q.grad = g, g
-        obs.reset()
-        for _ in range(ADAM_CHECK_STEPS):
-            kernel.step()
-            with mock.patch.object(optim, "adam_update", adam_cuda.adam_update_ref):
-                plain.step()
-        sync()
-        launches = obs.counter("ops.adam.launches")
-        same = all(torch.equal(p, q) for (_, p), (_, q) in zip(mine, ref)) and all(
-            torch.equal(a, b) for a, b in zip(kernel.mu + kernel.nu, plain.mu + plain.nu))
-        emit("kernel_check", kernel="adam_update", case=name, impl=impl, state_dtype=dtype,
-             steps=ADAM_CHECK_STEPS, launches=launches, bit_identical=same)
-        if launches != ADAM_CHECK_STEPS or not same:
-            raise AssertionError(f"adam_update {name}: {launches} launches in "
-                                 f"{ADAM_CHECK_STEPS} steps, bit-identical {same}")
-
-        ps, qs = [p.detach() for _, p in mine], [q.detach() for _, q in ref]
+        moment = torch.bfloat16 if dtype == "bf16" else torch.float32
+        mine = [params] + [[torch.zeros_like(p, dtype=moment) for p in params] for _ in range(2)]
+        ref = [[x.clone() for x in xs] for xs in mine]
         scalars = [torch.tensor(v, device="cuda") for v in (1e-4, 0.1, 1e-3)]
         kw = dict(impl=impl, b1=0.9, b2=0.999, eps=1e-8, clip=0.0)
+
         def run():
-            adam_cuda.adam_update(ps, grads, kernel.mu, kernel.nu, *scalars, None, **kw)
+            adam_cuda.adam_update(mine[0], grads, mine[1], mine[2], *scalars, None, **kw)
 
         def run_plain():
-            adam_cuda.adam_update_ref(qs, grads, plain.mu, plain.nu, *scalars, None, **kw)
+            adam_cuda.adam_update_ref(ref[0], grads, ref[1], ref[2], *scalars, None, **kw)
 
-        n = sum(p.numel() for p in ps)
+        run()
+        run_plain()
+        got, want = ({k: [x.clone() for x in xs] for k, xs in zip(("weights", "mu", "nu"), state)}
+                     for state in (mine, ref))
+        n = sum(p.numel() for p in params)
         bound_ms = ADAM_BYTES[dtype] * n / HBM_BYTES_PER_S * 1e3
         timing = dict(leaves=len(shapes), n=n, impl=impl, state_dtype=dtype,
                       ms=time_graph(run), plain_ms=time_graph(run_plain, reps=10),
                       call_ms=time_cuda(run, 50), plain_call_ms=time_cuda(run_plain, 10, warmup=2),
                       bound_ms=bound_ms, bound_by="bytes", library_ms=None)
         if dtype == "f32":
-            lib = torch.optim.Adam([q for _, q in ref], lr=1e-4, fused=True, capturable=True)
-            timing["library_ms"] = time_graph(lib.step)
+            lib = [torch.nn.Parameter(q) for q in ref[0]]
+            for q, g in zip(lib, grads):
+                q.grad = g
+            timing["library_ms"] = time_graph(torch.optim.Adam(lib, lr=1e-4, fused=True, capturable=True).step)
         timing["roofline_pct"] = 100.0 * bound_ms / timing["ms"]
-        emit("kernel_time", kernel="adam_update", set=name, **timing)
-        out[name] = timing
-        del kernel, plain, mine, ref, init, grads, ps, qs
-        torch.cuda.empty_cache()
-    return out
+        yield f"_{name}", got, want, adam_cuda.GATES, timing
 
 
 def moe_rows_operands(case: str, seed: int = 0) -> dict:
@@ -813,22 +528,19 @@ def moe_rows_bytes(o: dict) -> dict:
             "moe_combine_rows_backward": t * d * 4 + n * d * 2 + t * k * 12 + n * d * 2 + t * k * 4}
 
 
-def phase_moe_rows_check() -> dict:
-    """The experts layer's six row-pass kernels (``ops/moe_rows_cuda.py``)
-    at MOE_ROWS's shapes, at ~10,330 held rows and at all T k: each pass
-    forward and backward through the wrapper against its plain version
-    (autograd), the rows under n and the per-token results to the bit, the
-    combine's weight gradient within 2 d 2^-24 sum |g y| (a float32 dot
-    product summed in another order), six launches; then each kernel's
-    device ms (a CUDA graph replayed, outputs allocated once) beside its
-    bytes bound, and the plain version's ms (its forward, or its backward
-    alone through ``torch.autograd.grad``)."""
+def moe_rows_cases():
+    """Kernel 4's six kernels at MOE_ROWS's shapes, at ~10,330 held rows
+    (``"cell"``) and at all T k (``"all"``): each pass forward and backward
+    through its wrapper against its plain version (autograd), the rows
+    under n and the per-token results to the bit, the combine's gradient
+    of the weights within ``grad_w_atol``; then each kernel launched into
+    outputs allocated once: its device ms (a CUDA graph replayed) beside
+    its bytes bound, and the plain version's ms (its forward, or its
+    backward alone through ``torch.autograd.grad``)."""
     mr = moe_rows_cuda
-    out = {}
     for case in ("cell", "all"):
         o = moe_rows_operands(case)
-        n, order, inv, offs, mine = o["n"], o["order"], o["inv"], o["offs"], o["mine"]
-        obs.reset()
+        n, order, inv, offs, t, k, d, f = (o[key] for key in ("n", "order", "inv", "offs", "t", "k", "d", "f"))
         res = {}
         for kernel in (True, False):
             tokens = o["tokens"].clone().requires_grad_(True)
@@ -840,127 +552,155 @@ def phase_moe_rows_check() -> dict:
             ys, w = o["ys"].clone().requires_grad_(True), o["w"].clone().requires_grad_(True)
             y = (mr.combine if kernel else mr.combine_ref)(ys, w, inv, offs)
             dys, dw = torch.autograd.grad(y, [ys, w], o["grad_out"])
-            res[kernel] = [xs[:n], dtok, h[:n], dh1[:n], y, dys[:n], dw]
-        sync()
-        launches = obs.counter("ops.moe_rows.launches")
-        same = all(torch.equal(a, b) for a, b in zip(res[True][:6], res[False][:6]))
-        finite = all(bool(torch.isfinite(a).all()) for a in res[True])
-        rows = o["ys"].float().index_select(0, inv).view(o["t"], o["k"], -1)
-        scale = torch.where(mine, (o["grad_out"][:, None, :] * rows).abs().sum(-1), 0.0)
-        err = (res[True][6] - res[False][6]).abs()
-        gate = float((err / (2 * o["d"] * 2.0**-24 * scale).clamp_min(1e-30)).max())
-        emit("kernel_check", kernel="moe_rows", case=case, n=n, rows=o["t"] * o["k"], launches=launches,
-             bit_identical=same, finite=finite, grad_w_max_abs_err=float(err.max()), grad_w_gate_ratio=gate)
-        if launches != 6 or not same or not finite or gate > 1.0:
-            raise AssertionError(f"moe_rows {case}: {launches} launches, bit-identical {same}, finite "
-                                 f"{finite}, grad_w at {gate} of its gate")
-        del res
+            # each kernel's outputs compared
+            res[kernel] = {"moe_gather_rows": {"rows": xs.detach()[:n]},
+                           "moe_gather_rows_backward": {"rows": dtok},
+                           "moe_swiglu_rows": {"rows": h.detach()[:n]},
+                           "moe_swiglu_rows_backward": {"rows": dh1[:n]},
+                           "moe_combine_rows": {"rows": y.detach()},
+                           "moe_combine_rows_backward": {"rows": dys[:n], "grad_w": dw}}
+        gates = {**mr.GATES, "grad_w": (0.0, mr.grad_w_atol(o["grad_out"], o["ys"], inv, o["mine"]))}
 
         def empty(*shape, dt=torch.bfloat16):
             return torch.empty(shape, device="cuda", dtype=dt)
 
-        t, k, d, f = o["t"], o["k"], o["d"], o["f"]
-        xs_o, tok_o, h_o, dh1_o = empty(t * k, d), empty(t, d, dt=torch.float32), empty(t * k, f), empty(
-            t * k, 2 * f)
-        y_o, dys_o, dw_o = empty(t, d, dt=torch.float32), empty(t * k, d), empty(t, k, dt=torch.float32)
-        kernels = {
-            "moe_gather_rows": lambda: mr.launch_gather(o["tokens"], order, offs, xs_o),
-            "moe_gather_rows_backward": lambda: mr.launch_gather_backward(o["grad_xs"], inv, offs, tok_o),
-            "moe_swiglu_rows": lambda: mr.launch_swiglu(o["h1"], offs, h_o),
-            "moe_swiglu_rows_backward": lambda: mr.launch_swiglu_backward(o["grad_h"], o["h1"], offs, dh1_o),
-            "moe_combine_rows": lambda: mr.launch_combine(o["ys"], o["w"], inv, offs, y_o),
-            "moe_combine_rows_backward": lambda: mr.launch_combine_backward(
-                o["grad_out"], o["ys"], o["w"], inv, offs, dys_o, dw_o),
-        }
-        tokens = o["tokens"].clone().requires_grad_(True)
-        h1 = o["h1"].clone().requires_grad_(True)
+        xs, tok, h, dh1 = empty(t * k, d), empty(t, d, dt=torch.float32), empty(t * k, f), empty(t * k, 2 * f)
+        y, dys, dw = empty(t, d, dt=torch.float32), empty(t * k, d), empty(t, k, dt=torch.float32)
+        tokens, h1 = o["tokens"].clone().requires_grad_(True), o["h1"].clone().requires_grad_(True)
         ys, w = o["ys"].clone().requires_grad_(True), o["w"].clone().requires_grad_(True)
-        xs_p = mr.gather_ref(tokens, order, inv, offs, torch.bfloat16)
-        h_p = mr.swiglu_ref(h1)
-        y_p = mr.combine_ref(ys, w, inv, offs)
-        plain = {
-            "moe_gather_rows": lambda: mr.gather_ref(o["tokens"], order, inv, offs, torch.bfloat16),
-            "moe_gather_rows_backward": lambda: torch.autograd.grad(xs_p, [tokens], o["grad_xs"],
-                                                                    retain_graph=True),
-            "moe_swiglu_rows": lambda: mr.swiglu_ref(o["h1"]),
-            "moe_swiglu_rows_backward": lambda: torch.autograd.grad(h_p, [h1], o["grad_h"], retain_graph=True),
-            "moe_combine_rows": lambda: mr.combine_ref(o["ys"], o["w"], inv, offs),
-            "moe_combine_rows_backward": lambda: torch.autograd.grad(y_p, [ys, w], o["grad_out"],
-                                                                     retain_graph=True),
+        xs_p, h_p, y_p = (mr.gather_ref(tokens, order, inv, offs, torch.bfloat16), mr.swiglu_ref(h1),
+                          mr.combine_ref(ys, w, inv, offs))
+        # kernel: (its launch, the plain version)
+        runs = {
+            "moe_gather_rows": (lambda: mr.launch_gather(o["tokens"], order, offs, xs),
+                                lambda: mr.gather_ref(o["tokens"], order, inv, offs, torch.bfloat16)),
+            "moe_gather_rows_backward": (
+                lambda: mr.launch_gather_backward(o["grad_xs"], inv, offs, tok),
+                lambda: torch.autograd.grad(xs_p, [tokens], o["grad_xs"], retain_graph=True)),
+            "moe_swiglu_rows": (lambda: mr.launch_swiglu(o["h1"], offs, h), lambda: mr.swiglu_ref(o["h1"])),
+            "moe_swiglu_rows_backward": (
+                lambda: mr.launch_swiglu_backward(o["grad_h"], o["h1"], offs, dh1),
+                lambda: torch.autograd.grad(h_p, [h1], o["grad_h"], retain_graph=True)),
+            "moe_combine_rows": (lambda: mr.launch_combine(o["ys"], o["w"], inv, offs, y),
+                                 lambda: mr.combine_ref(o["ys"], o["w"], inv, offs)),
+            "moe_combine_rows_backward": (
+                lambda: mr.launch_combine_backward(o["grad_out"], o["ys"], o["w"], inv, offs, dys, dw),
+                lambda: torch.autograd.grad(y_p, [ys, w], o["grad_out"], retain_graph=True)),
         }
         nbytes = moe_rows_bytes(o)
-        out[case] = {"n": n}
-        for name in MOE_ROWS_KERNELS:
-            bound_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        for name, (kernel, plain) in runs.items():
             with torch.set_grad_enabled("backward" in name):
-                plain_ms = time_cuda(plain[name], 10, warmup=2)
-            timing = dict(ms=time_graph(kernels[name], reps=20), plain_ms=plain_ms, bound_ms=bound_ms,
-                          bytes=nbytes[name], bound_by="bytes")
-            timing["roofline_pct"] = 100.0 * bound_ms / timing["ms"]
-            emit("kernel_time", kernel=name, case=case, n=n, **timing)
-            out[case][name] = timing
-        del o, kernels, plain, xs_p, h_p, y_p
+                plain_ms = time_cuda(plain, 10, warmup=2)
+            bound_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
+            ms = time_graph(kernel, reps=20)
+            yield f"_{name}_{case}", res[True][name], res[False][name], gates, dict(
+                n=n, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bytes=nbytes[name], bound_by="bytes",
+                roofline_pct=100.0 * bound_ms / ms)
+        del o, res, runs, xs_p, h_p, y_p
         torch.cuda.empty_cache()
+
+
+# the kernels: their launch counter, wrapper module (its GATES: each
+# output's gate against the plain version), the Pallas kernel each replaces,
+# the key of its SASS summary and its timed cases, each case yielding (key
+# suffix, the kernel's outputs, the plain version's, their gates, the
+# timings).  The source of each is csrc/<name>.cu
+KERNELS = {
+    "igso3_logpdf_score": dict(counter="ops.igso3.launches", module=igso3_cuda,
+                               replaces="diffusion_extensions_tpu/ops/igso3_pallas.py:101",
+                               sass="sass_instructions", cases=igso3_cases),
+    "gaussian_kernel_sum": dict(counter="ops.mmd.launches", module=mmd_cuda,
+                                replaces="diffusion_extensions_tpu/ops/mmd_pallas.py:112",
+                                sass="sass_per_pair", cases=mmd_cases),
+    "adam_update": dict(counter="ops.adam.launches", module=adam_cuda, replaces=None, sass="sass_instructions",
+                        cases=adam_cases),
+    "moe_rows": dict(counter="ops.moe_rows.launches", module=moe_rows_cuda, replaces=None,
+                     sass="sass_instructions", cases=moe_rows_cases),
+}
+
+
+def agreement(got: dict, want: dict, gates: dict) -> dict:
+    """Each output's largest |kernel - plain| (``<output>_max_abs_err``),
+    the largest of them, that over the plain output's largest |value|
+    (``max_rel_err``), and the largest |kernel - plain| / (atol + rtol
+    |plain|) under each output's gate (``gate_ratio``; under None, 0 for
+    the same bits, else inf).  An output is a tensor or a list of them."""
+    out = {"max_abs_err": 0.0, "max_rel_err": 0.0, "gate_ratio": 0.0}
+    for name in got:
+        tol = gates[name]
+        pairs = zip(*(x if isinstance(x, list) else [x] for x in (got[name], want[name])))
+        for a, b in pairs:
+            diff = (a.float() - b.float()).abs()
+            err = float(diff.max())
+            out[f"{name}_max_abs_err"] = max(out.get(f"{name}_max_abs_err", 0.0), err)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out["max_rel_err"] = max(out["max_rel_err"], err / max(float(b.float().abs().max()), 1e-30))
+            ratio = ((0.0 if torch.equal(a, b) else math.inf) if tol is None
+                     else float((diff / (tol[1] + tol[0] * b.float().abs()).clamp_min(1e-30)).max()))
+            out["gate_ratio"] = max(out["gate_ratio"], ratio)
     return out
 
 
-def small_cpu_agreement() -> None:
-    """The Heun sampler on the card (kernel) against the same sampler on the
-    CPU (plain version), same weights and same x_init, at a small size:
-    dim 64, 2 layers, B 4, N 32, T 50, 10 steps; the denoiser's head is
-    scaled by 0.1 so the chain is not chaotic.  1e-3 on rotation entries."""
-    torch.manual_seed(3)
-    model = PlaneNet(dim=64, heads=4, layers=2).eval()
-    with torch.no_grad():
-        model.head.weight.mul_(0.1)
-        model.head.bias.mul_(0.1)
-    data = torch.from_numpy(np.random.default_rng(3).standard_normal((4, 32, 3)).astype(np.float32))
-    x_init = torch.linalg.qr(torch.randn(4, 3, 3))[0]
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        proc = ProjectedSO3Diffusion(50, device=dev)
-        with torch.inference_mode():
-            outs[dev] = proc.pf_sample_loop(
-                model.to(dev), None, (4,), 10, PointCloudProj(data.to(dev)),
-                method="heun", x_init=x_init.to(dev),
-            ).cpu()
-    err = float((outs["cpu"] - outs["cuda"]).abs().max())
-    emit("small_agreement", sampler="pf_heun", max_abs_err=err, tol=1e-3)
-    if not err < 1e-3:
-        raise AssertionError(f"Heun sampler: card and CPU disagree by {err}")
+def phase_kernels() -> dict:
+    """Each kernel of KERNELS at its timed cases: a ``kernel_time`` line a
+    case; returns each kernel's record, its timings under the case's key
+    suffix, the largest of its distances from the plain version, and
+    ``pass``: whether those lie inside the kernel's gates."""
+    records = {}
+    for name, spec in KERNELS.items():
+        rec, errs = {}, []
+        for suffix, got, want, gates, timing in spec["cases"]():
+            errs.append(agreement(got, want, gates))
+            emit("kernel_time", kernel=name, case=suffix.lstrip("_"), **timing, **errs[-1])
+            rec.update({f"{k}{suffix}": v for k, v in timing.items()})
+            sync()
+            torch.cuda.empty_cache()
+        keys = dict.fromkeys(k for e in errs for k in e)  # a case may compare fewer outputs
+        rec.update({k: max(e.get(k, 0.0) for e in errs) for k in keys})
+        rec["pass"] = rec["gate_ratio"] <= 1.0
+        records[name] = rec
+    return records
 
 
-def small_bingham_agreement() -> None:
-    """The Bingham slice on the card against the same on the CPU: RotPredict
-    d_model 65 (seeded, head scaled by 0.1), SO3Diffusion T = 50, DDIM-10
-    over 256 chains from the same x_init: 1e-3 on rotation entries; the MMD
-    of those samples against 256 Bingham targets (kernel on the card, plain
-    version on the CPU): rtol 1e-3."""
-    torch.manual_seed(5)
-    model = RotPredict(65, "skewvec").eval()
-    with torch.no_grad():
-        model.out.weight.mul_(0.1)
-        model.out.bias.mul_(0.1)
-    proc_cpu = SO3Diffusion.create(50, device="cpu")
-    x_init = proc_cpu.prior_table.sample(torch.Generator().manual_seed(6),
-                                         torch.zeros(256, dtype=torch.long))
-    z = torch.from_numpy(np.random.default_rng(7).standard_normal((256, 4)).astype(np.float32))
-    target = quat_to_rmat(bingham_dist(BINGHAM_COV, device="cpu").from_normal(z))
-    outs, mmds = {}, {}
-    for dev in ("cpu", "cuda"):
-        proc = proc_cpu if dev == "cpu" else SO3Diffusion.create(50, device=dev)
-        with torch.inference_mode():
-            outs[dev] = proc.ddim_sample_loop(model.to(dev), None, (256,), 10,
-                                              x_init=x_init.to(dev))
-            mmds[dev] = float(mmd(target.to(dev), outs[dev]))
-    err = float((outs["cpu"] - outs["cuda"].cpu()).abs().max())
-    mmd_rel = abs(mmds["cuda"] - mmds["cpu"]) / abs(mmds["cpu"])
-    emit("small_agreement", sampler="bingham_ddim_10", max_abs_err=err, tol=1e-3,
-         mmd_cuda=mmds["cuda"], mmd_cpu=mmds["cpu"], mmd_rel_err=mmd_rel, mmd_rtol=1e-3)
-    if not err < 1e-3:
-        raise AssertionError(f"Bingham DDIM chain: card and CPU disagree by {err}")
-    if not mmd_rel < 1e-3:
-        raise AssertionError(f"Bingham MMD: card {mmds['cuda']} vs CPU {mmds['cpu']}")
+def read_jsonl(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_captured(fn, argv):
+    """``fn(argv)`` with its standard output passed on and returned."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    print(buf.getvalue(), end="", flush=True)
+    return out, buf.getvalue()
+
+
+def evaluate(main, argv):
+    """``main(argv)``, an experiment's ``--test`` run, with its output passed
+    on; raises where it found no weights to evaluate."""
+    res, out = run_captured(main, argv)
+    if "no checkpoint found" in out:
+        raise AssertionError(f"{main.__module__} {argv}: evaluated an untrained model")
+    return res, out
+
+
+def falling_run(name: str, main, argv: list, tmp: str, steps: int, window: int = 10, calls: int | None = None):
+    """``main(argv)`` trained ``steps`` steps with a row logged a call (``calls``
+    rows, ``steps`` by default): every loss finite and the mean of the last
+    ``window`` rows below that of the first; returns the rows, the
+    checkpoint directory and the log."""
+    ckpt, log = os.path.join(tmp, f"{name}_fall"), os.path.join(tmp, f"{name}_fall.jsonl")
+    run_captured(main, argv + ["--steps", str(steps), "--print-every", "1", "--ckpt", ckpt, "--log", log])
+    rows = read_jsonl(log)
+    first, last = ([r["loss"] for r in part] for part in (rows[:window], rows[-window:]))
+    emit(name, run="falling_loss", steps=steps, rows=len(rows), window=window, losses_first=first,
+         losses_last=last, loss_first=float(np.mean(first)), loss_last=float(np.mean(last)),
+         test_loss_first=rows[0].get("test_loss"), test_loss_last=rows[-1].get("test_loss"))
+    if len(rows) != (calls or steps) or not all(np.isfinite(r["loss"]) for r in rows) \
+            or not np.mean(last) < np.mean(first):
+        raise AssertionError(f"{name}: loss did not fall ({first} -> {last})")
+    return rows, ckpt, log
 
 
 def check_rotations(name: str, r: torch.Tensor) -> dict:
@@ -974,31 +714,64 @@ def check_rotations(name: str, r: torch.Tensor) -> dict:
     return {"orth_err": orth, "det_err": det}
 
 
-def phase_path() -> dict:
-    """The aircraft sampling path at full width; returns each kernel's
-    launches in this run and the forward's ms."""
+def aircraft_test(name: str, argv: list, shapes: int) -> str:
+    """``aircraft.main(argv + --test)`` over ``shapes`` shapes, one 1000-step
+    chain a shape: every angle finite, the first call's rotations on SO(3);
+    returns what ``aircraft.main`` printed."""
+    sampled, sample = [], aircraft.sample_rotations
+
+    def recorded(*a, **kw):
+        sampled.append(sample(*a, **kw))
+        return sampled[-1]
+
+    t0 = time.perf_counter()
+    with mock.patch.object(aircraft, "SAMPLES_PER_SHAPE", 1), \
+            mock.patch.object(aircraft, "sample_rotations", recorded):
+        res, out = evaluate(aircraft.main, argv + ["--test", "--max-shapes", str(shapes)])
+    sync()
+    emit(name, run="test_on_checkpoint", seconds=time.perf_counter() - t0, samples=len(res),
+         chains=len(sampled), steps=PATH["timesteps"], median_angle=float(np.median(res)),
+         **check_rotations(f"{name} --test", sampled[0]))
+    if res.shape != (shapes,) or not np.isfinite(res).all():
+        raise AssertionError(f"{name} --test: angles {res}")
+    return out
+
+
+def aircraft_proj(device) -> PointCloudProj:
+    """The projection of PATH's batch of aircraft clouds."""
+    clouds = subsample_points(synthetic_planes(128, seed=2), PATH["samples"], seed=17)
+    return PointCloudProj(torch.from_numpy(clouds[: PATH["batch"]]).to(device))
+
+
+def forward_ms(model, proj) -> float:
+    """ms of one inference-mode forward of the aircraft denoiser at PATH's
+    batch, t = 500."""
+    x_in = proj(torch.eye(3, device="cuda").expand(PATH["batch"], 3, 3))
+    t_in = torch.full((PATH["batch"],), 500, device="cuda")
+    with torch.inference_mode():
+        return time_cuda(lambda: model(x_in, t_in), 10, warmup=3)
+
+
+def phase_path(tmp: str) -> None:
+    """The aircraft sampling path at full width: the forward's ms, the
+    ancestral chain, Heun-50 and ``log_prob`` on 50,000 rotations."""
     device = torch.device("cuda")
     t0 = time.perf_counter()
     torch.manual_seed(0)
     model = PlaneNet(dim=PATH["dim"], heads=PATH["heads"], layers=PATH["layers"]).to(device).eval()
     process = ProjectedSO3Diffusion(PATH["timesteps"], device=device)
     short_process = ProjectedSO3Diffusion(PATH["ancestral_steps"], device=device)
-    clouds = subsample_points(synthetic_planes(128, seed=2), PATH["samples"], seed=17)
-    proj = PointCloudProj(torch.from_numpy(clouds[: PATH["batch"]]).to(device))
+    proj = aircraft_proj(device)
     dist = IsotropicGaussianSO3.create(0.5, device=device)
     sync()
     setup_s = time.perf_counter() - t0
-    x_in = proj(torch.eye(3, device=device).expand(PATH["batch"], 3, 3))
-    t_in = torch.full((PATH["batch"],), 500, device=device)
-    with torch.inference_mode():
-        fwd_ms = time_cuda(lambda: model(x_in, t_in), 10, warmup=3)
+    fwd_ms = forward_ms(model, proj)
     flops = planenet_flops(PATH["dim"], PATH["layers"], PATH["batch"], PATH["samples"])
     emit("path_setup", seconds=setup_s, params=sum(p.numel() for p in model.parameters()),
          forward_ms=fwd_ms, forward_gflop=flops / 1e9,
          forward_tflops=flops / fwd_ms / 1e9, **PATH)
 
     gen = torch.Generator(device=device).manual_seed(1)
-    obs.reset()
     runs = {}
     with torch.inference_mode():
         before = obs.counter("ops.igso3.launches")
@@ -1026,11 +799,10 @@ def phase_path() -> dict:
         sync()
         runs["log_prob"] = dict(seconds=time.perf_counter() - t0, n=PATH["log_prob_n"],
                                 launches=obs.counter("ops.igso3.launches") - before)
-    total = kernel_launches()
 
     assert lp.shape == (PATH["log_prob_n"],) and torch.isfinite(lp).all()
     ref = igso3_log_density(rotation_angle(samples), dist.eps)
-    la, lg = gate(lp, ref, *LOGF_TOL)
+    la, lg = gate(lp, ref, *igso3_cuda.GATES["logf"])
     runs["log_prob"].update(max_abs_err_vs_plain=la, gate_ratio=lg)
     for name, run in runs.items():
         emit("path_run", run=name, **run)
@@ -1040,32 +812,25 @@ def phase_path() -> dict:
         raise AssertionError(f"IGSO(3) kernel launches {got}, expected {want}")
     if lg > 1.0:
         raise AssertionError(f"log_prob disagrees with the plain density: {la}")
-    if total["igso3_logpdf_score"] == 0:
-        raise AssertionError("the aircraft path launched no IGSO(3) kernel")
-    return total, fwd_ms
 
 
-def phase_bingham_path() -> dict:
+def phase_bingham_path(tmp: str) -> None:
     """experiments/bingham.py --test --sampler-ab at full size, seeded init,
-    records into a temporary directory; returns each kernel's launches."""
+    records into ``tmp``."""
     if (bingham.SAMPLES, bingham.NET_SAMPLES) != (BINGHAM_N, BINGHAM_N):
         raise AssertionError(f"bingham.SAMPLES = {bingham.SAMPLES}, expected {BINGHAM_N}")
-    obs.reset()
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        rows = bingham.main([BINGHAM_COV, "--test", "--sampler-ab", "--timesteps", "1000",
-                             "--out-dir", tmp, "--ckpt", os.path.join(tmp, "none.pt")])
-        seconds = time.perf_counter() - t0
-        files = sorted(os.listdir(tmp))
-    total = kernel_launches()
-    rows = rows[BINGHAM_COV]
+    t0 = time.perf_counter()
+    rows = bingham.main([BINGHAM_COV, "--test", "--sampler-ab", "--timesteps", "1000",
+                         "--out-dir", tmp, "--ckpt", os.path.join(tmp, "none.pt")])[BINGHAM_COV]
+    seconds = time.perf_counter() - t0
+    files = sorted(os.listdir(tmp))
     for r in rows:
         emit("bingham_run", sampler=r["sampler"], seconds=r["sample_seconds"],
              model_evals=r["model_evals"], mmd=r["mmd"], passes=r["passes"],
              accept_threshold=r["accept_threshold"], sweeps=r.get("sweeps"),
              launches=r["launches"], orth_err=r["orth_err"], det_err=r["det_err"],
              count=r["count"])
-    emit("bingham_path", seconds=seconds, launches=total, files=files)
+    emit("bingham_path", seconds=seconds, launches=kernel_launches(), files=files)
     got = {r["sampler"]: r["launches"] for r in rows}
     want = {k: {"igso3_logpdf_score": v, "gaussian_kernel_sum": 3}
             for k, v in BINGHAM_IGSO3.items()}
@@ -1081,54 +846,6 @@ def phase_bingham_path() -> dict:
     if files != [f"torch_bingham_mmd_{BINGHAM_COV}.json",
                  f"torch_bingham_sampler_ab_{BINGHAM_COV}.json"]:
         raise AssertionError(f"Bingham records: {files}")
-    return total
-
-
-def small_train_agreement() -> None:
-    """Five train steps on the card against the same five on the CPU: PlaneNet
-    dim 32 / 2 heads / 1 layer, batch 8 x 16 points, T = 100, the same init,
-    clouds, t and noise (drawn once on the CPU), Adam lr 1e-3: each step's
-    loss within rtol 1e-4."""
-    rng = np.random.default_rng(11)
-    clouds = torch.from_numpy(rng.standard_normal((5, 8, 16, 3)).astype(np.float32))
-    t = torch.from_numpy(rng.integers(0, 100, (5, 8)))
-    torch.manual_seed(11)
-    init = PlaneNet(dim=32, heads=2, layers=1).state_dict()
-    proc_cpu = ProjectedSO3Diffusion(100, device="cpu")
-    gen = torch.Generator().manual_seed(12)
-    noise = torch.stack([proc_cpu.sample_noise(gen, t[i]) for i in range(5)])
-    losses = {}
-    for dev in ("cpu", "cuda"):
-        model = PlaneNet(dim=32, heads=2, layers=1)
-        model.load_state_dict(init)
-        model = model.to(dev)
-        proc = proc_cpu if dev == "cpu" else ProjectedSO3Diffusion(100, device=dev)
-        opt = make_optimizer(model.named_parameters(), 1e-3)
-        step = make_dp_train_step(aircraft.make_loss_fn(model, proc), model, opt)
-        state = TrainState(model, opt, torch.Generator(device=dev))
-        losses[dev] = []
-        for i in range(5):
-            state, m = step(state, (clouds[i].to(dev), t[i].to(dev), noise[i].to(dev)))
-            losses[dev].append(float(m["loss"]))
-    rel = max(abs(a - b) / abs(a) for a, b in zip(losses["cpu"], losses["cuda"]))
-    emit("small_agreement", run="train_5_steps", loss_cpu=losses["cpu"],
-         loss_cuda=losses["cuda"], max_rel_err=rel, rtol=1e-4)
-    if not rel < 1e-4:
-        raise AssertionError(f"train steps: card and CPU losses differ by {rel}")
-
-
-def read_jsonl(path: str) -> list[dict]:
-    with open(path) as f:
-        return [json.loads(line) for line in f]
-
-
-def run_captured(fn, argv):
-    """``fn(argv)`` with its standard output passed on and returned."""
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        out = fn(argv)
-    print(buf.getvalue(), end="", flush=True)
-    return out, buf.getvalue()
 
 
 def exact_resume_check(tmp: str, argv=("--so3",)) -> dict:
@@ -1173,101 +890,78 @@ def exact_resume_check(tmp: str, argv=("--so3",)) -> dict:
     graphed_half = run(*fresh(5), batches[:n], k=5)
     graphed_resumed = run(*restored(graphed_half, "exact_graphed"), batches[n:])
     sync()
-    return {"resume": diff(full, resumed), "captured": diff(full, graphed),
-            "captured_then_resume": diff(full, graphed_resumed)}
+    diffs = {"resume": diff(full, resumed), "captured": diff(full, graphed),
+             "captured_then_resume": diff(full, graphed_resumed)}
+    emit("exact_resume", argv=list(argv), n=n, max_abs_diff=diffs)
+    if any(d != 0.0 for d in diffs.values()):
+        raise AssertionError(f"{argv}: weights differ from 2N eager steps: {diffs}")
 
 
-def phase_aircraft_train(fwd_ms: float) -> dict:
-    """Aircraft training at full width through ``aircraft.main``; returns
-    each kernel's launches in this phase."""
-    obs.reset()
+AIRCRAFT_ARGV = ["--dim", str(PATH["dim"]), "--heads", str(PATH["heads"]), "--layers", str(PATH["layers"]),
+                 "--batch", str(PATH["batch"]), "--samples", str(PATH["samples"]),
+                 "--timesteps", str(PATH["timesteps"])]
+
+
+def phase_aircraft_train(tmp: str) -> None:
+    """Aircraft training at full width through ``aircraft.main``: timed
+    variants, a falling loss and its resume, the exact resumes, ``--test``
+    on the checkpoint and Heun-50 on the trained weights."""
     steps = TRAIN["warmup"] + TRAIN["timed"]
-    base = ["--so3", "--dim", str(PATH["dim"]), "--heads", str(PATH["heads"]),
-            "--layers", str(PATH["layers"]), "--batch", str(PATH["batch"]),
-            "--samples", str(PATH["samples"]), "--timesteps", str(PATH["timesteps"])]
+    base = ["--so3"] + AIRCRAFT_ARGV
     variants = [("fp32", []), ("bf16", ["--bf16"]), ("fused", ["--opt-impl", "fused"]),
                 ("k8", ["--steps-per-call", "8"]),
                 ("bf16_k8", ["--bf16", "--steps-per-call", "8"])]
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, extra in variants:
-            ckpt, log = os.path.join(tmp, name), os.path.join(tmp, f"{name}.jsonl")
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            state = aircraft.main(base + extra + [
-                "--steps", str(steps), "--print-every", str(TRAIN["print_every"]),
-                "--ckpt", ckpt, "--log", log])
-            sync()
-            seconds = time.perf_counter() - t0
-            rows = read_jsonl(log)
-            sps = rows[-1]["steps_per_sec"]
-            emit("aircraft_train", variant=name, steps=steps, timed_steps=TRAIN["timed"],
-                 ms_per_step=1e3 / sps, steps_per_sec=sps, forward_ms=fwd_ms,
-                 forward_share=fwd_ms * sps / 1e3, loss_first=rows[0]["loss"],
-                 loss_last=rows[-1]["loss"], test_loss=rows[-1]["test_loss"],
-                 peak_memory_bytes=torch.cuda.max_memory_allocated(), seconds=seconds,
-                 logged_steps=[r["step"] for r in rows])
-            if not all(np.isfinite(r["loss"]) and np.isfinite(r["test_loss"]) for r in rows):
-                raise AssertionError(f"aircraft_train {name}: a loss is not finite: {rows}")
-            if state.step != steps or rows[-1]["step"] != steps:
-                raise AssertionError(f"aircraft_train {name}: step {state.step}, wanted {steps}")
-            if latest_step(ckpt) != steps:
-                raise AssertionError(f"aircraft_train {name}: no checkpoint at step {steps}")
-
-        # the loss falls; a resume continues from the stored step
-        ckpt, log = os.path.join(tmp, "fall"), os.path.join(tmp, "fall.jsonl")
-        n = TRAIN["fall_steps"]
-        common = base + ["--print-every", "1", "--ckpt-every", "100", "--ckpt", ckpt,
-                         "--log", log]
-        _, out = run_captured(aircraft.main, common + ["--steps", str(n)])
+    device = torch.device("cuda")
+    proj = aircraft_proj(device)
+    fwd_ms = forward_ms(PlaneNet(dim=PATH["dim"], heads=PATH["heads"], layers=PATH["layers"]).to(device).eval(),
+                        proj)
+    for name, extra in variants:
+        ckpt, log = os.path.join(tmp, name), os.path.join(tmp, f"{name}.jsonl")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = aircraft.main(base + extra + [
+            "--steps", str(steps), "--print-every", str(TRAIN["print_every"]),
+            "--ckpt", ckpt, "--log", log])
+        sync()
+        seconds = time.perf_counter() - t0
         rows = read_jsonl(log)
-        first = float(np.mean([r["loss"] for r in rows[:10]]))
-        last = float(np.mean([r["loss"] for r in rows[-10:]]))
-        files = sorted(os.listdir(ckpt))
-        more = n + TRAIN["resume_more"]
-        state, _ = run_captured(aircraft.main, common + ["--steps", str(more), "--resume"])
-        resumed = read_jsonl(log)[len(rows):]
-        emit("aircraft_train", run="falling_loss_and_resume", steps=n, loss_first_10=first,
-             loss_last_10=last, test_loss_first=rows[0]["test_loss"],
-             test_loss_last=rows[-1]["test_loss"], checkpoints=files,
-             resumed_first_step=resumed[0]["step"], resumed_last_step=state.step)
-        if len(rows) != n or not all(np.isfinite(r["loss"]) for r in rows + resumed):
-            raise AssertionError("aircraft_train: missing or non-finite loss rows")
-        if not last < first:
-            raise AssertionError(f"aircraft_train: loss did not fall ({first} -> {last})")
-        if files != [f"step_{k:08d}.pt" for k in sorted({*range(100, n + 1, 100), n})[-3:]]:
-            raise AssertionError(f"aircraft_train: checkpoints {files}")
-        if (resumed[0]["step"], state.step, latest_step(ckpt)) != (n + 1, more, more):
-            raise AssertionError(f"aircraft_train: resume ran {resumed[0]['step']}..{state.step}")
+        sps = rows[-1]["steps_per_sec"]
+        emit("aircraft_train", variant=name, steps=steps, timed_steps=TRAIN["timed"],
+             ms_per_step=1e3 / sps, steps_per_sec=sps, forward_ms=fwd_ms,
+             forward_share=fwd_ms * sps / 1e3, loss_first=rows[0]["loss"],
+             loss_last=rows[-1]["loss"], test_loss=rows[-1]["test_loss"],
+             peak_memory_bytes=torch.cuda.max_memory_allocated(), seconds=seconds,
+             logged_steps=[r["step"] for r in rows])
+        if not all(np.isfinite(r["loss"]) and np.isfinite(r["test_loss"]) for r in rows):
+            raise AssertionError(f"aircraft_train {name}: a loss is not finite: {rows}")
+        if state.step != steps or rows[-1]["step"] != steps:
+            raise AssertionError(f"aircraft_train {name}: step {state.step}, wanted {steps}")
+        if latest_step(ckpt) != steps:
+            raise AssertionError(f"aircraft_train {name}: no checkpoint at step {steps}")
 
-        diffs = exact_resume_check(tmp)
-        emit("aircraft_train", run="exact_resume", n=TRAIN["exact_n"], max_abs_diff=diffs,
-             bit_identical=all(d == 0.0 for d in diffs.values()))
-        if any(d != 0.0 for d in diffs.values()):
-            raise AssertionError(f"aircraft_train: weights differ from 2N eager steps: {diffs}")
+    # the loss falls; a resume continues from the stored step
+    n, more = TRAIN["fall_steps"], TRAIN["fall_steps"] + TRAIN["resume_more"]
+    rows, ckpt, log = falling_run("aircraft_train", aircraft.main, base + ["--ckpt-every", "100"], tmp, n)
+    files = sorted(os.listdir(ckpt))
+    state, _ = run_captured(aircraft.main, base + ["--ckpt-every", "100", "--print-every", "1", "--ckpt", ckpt,
+                                                   "--log", log, "--steps", str(more), "--resume"])
+    resumed = read_jsonl(log)[len(rows):]
+    emit("aircraft_train", run="resume", checkpoints=files, resumed_first_step=resumed[0]["step"],
+         resumed_last_step=state.step)
+    if not all(np.isfinite(r["loss"]) for r in resumed):
+        raise AssertionError("aircraft_train: non-finite loss rows after the resume")
+    if files != [f"step_{k:08d}.pt" for k in sorted({*range(100, n + 1, 100), n})[-3:]]:
+        raise AssertionError(f"aircraft_train: checkpoints {files}")
+    if (resumed[0]["step"], state.step, latest_step(ckpt)) != (n + 1, more, more):
+        raise AssertionError(f"aircraft_train: resume ran {resumed[0]['step']}..{state.step}")
 
-        # --test reads the checkpoint directory (one chain per shape here)
-        per_shape = aircraft.SAMPLES_PER_SHAPE
-        aircraft.SAMPLES_PER_SHAPE = 1
-        try:
-            t0 = time.perf_counter()
-            res, out = run_captured(aircraft.main, base + ["--test", "--max-shapes",
-                                                           str(PATH["batch"]), "--ckpt", ckpt])
-            seconds = time.perf_counter() - t0
-        finally:
-            aircraft.SAMPLES_PER_SHAPE = per_shape
-        emit("aircraft_train", run="test_on_checkpoint", seconds=seconds, samples=len(res),
-             median_angle=float(np.median(res)))
-        if "no checkpoint found" in out or res.shape != (PATH["batch"],) \
-                or not np.isfinite(res).all():
-            raise AssertionError("aircraft_train: --test did not evaluate the checkpoint")
+    exact_resume_check(tmp)
+    aircraft_test("aircraft_train", base + ["--ckpt", ckpt], PATH["batch"])
 
-        # the Heun sampler on the trained weights runs the IGSO(3) kernel
-        device = torch.device("cuda")
-        model, process = aircraft.build(aircraft.parse_args(base), device)
-        if not load_eval_weights(model.eval(), ckpt, device):
-            raise AssertionError("aircraft_train: no weights to sample from")
-    clouds = subsample_points(synthetic_planes(128, seed=2), PATH["samples"], seed=17)
-    proj = PointCloudProj(torch.from_numpy(clouds[: PATH["batch"]]).to(device))
+    # the Heun sampler on the trained weights runs the IGSO(3) kernel
+    model, process = aircraft.build(aircraft.parse_args(base), device)
+    if not load_eval_weights(model.eval(), ckpt, device):
+        raise AssertionError("aircraft_train: no weights to sample from")
     before = obs.counter("ops.igso3.launches")
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -1280,136 +974,67 @@ def phase_aircraft_train(fwd_ms: float) -> dict:
          **check_rotations("pf_heun_on_trained", rots))
     if heun != 2 * PATH["heun_steps"]:
         raise AssertionError(f"Heun on the trained weights: {heun} IGSO(3) launches")
-    return kernel_launches()
 
 
-def phase_bingham_train() -> dict:
+def phase_bingham_train(tmp: str) -> None:
     """experiments/bingham.py training on the "lcr" preset with the online MMD
-    curve, then --test on its checkpoint; returns each kernel's launches."""
-    obs.reset()
+    curve, then --test on its checkpoint."""
     steps, every = TRAIN["bingham_steps"], TRAIN["bingham_mmd_every"]
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt, log = os.path.join(tmp, "ck"), os.path.join(tmp, "log.jsonl")
-        t0 = time.perf_counter()
-        curve = bingham.main([BINGHAM_COV, "--steps", str(steps), "--mmd-every", str(every),
-                              "--print-every", str(TRAIN["bingham_print_every"]),
-                              "--out-dir", tmp, "--ckpt", ckpt,
-                              "--log", log])[BINGHAM_COV]
-        sync()
-        seconds = time.perf_counter() - t0
-        train_launches = obs.counter("ops.mmd.launches")
-        rows = read_jsonl(log)
-        # steps/s up to the first evaluation: later rows' clock includes it
-        clean = [r for r in rows if r["step"] <= curve[0]["step"]][-1]
-        emit("bingham_train", steps=steps, seconds=seconds, steps_per_sec=clean["steps_per_sec"],
-             ms_per_step=1e3 / clean["steps_per_sec"], steps_per_sec_at_step=clean["step"],
-             loss_first=rows[0]["loss"], loss_last=rows[-1]["loss"], curve=curve,
-             gaussian_kernel_sum_launches=train_launches,
-             files=sorted(f for f in os.listdir(tmp) if f.endswith(".json")))
-        curve_file = os.path.join(tmp, f"torch_bingham_mmd_curve_{BINGHAM_COV}.json")
-        with open(curve_file) as f:
-            stored = json.load(f)
-        if stored != curve or len(curve) != 2 or curve[-1]["step"] != steps:
-            raise AssertionError(f"bingham_train: curve {curve}, file {stored}")
-        if not all(np.isfinite(c["mmd"]) for c in curve):
-            raise AssertionError(f"bingham_train: MMD not finite: {curve}")
-        if train_launches != 6:
-            raise AssertionError(f"bingham_train: {train_launches} MMD kernel launches, not 6")
-        if not all(np.isfinite(r["loss"]) for r in rows) or latest_step(ckpt) != steps:
-            raise AssertionError("bingham_train: non-finite loss or no final checkpoint")
-        recs, out = run_captured(bingham.main, [BINGHAM_COV, "--test", "--out-dir", tmp,
-                                                "--ckpt", ckpt])
-        rec = recs[BINGHAM_COV][0]
-        emit("bingham_train", run="test_on_checkpoint", mmd=rec["mmd"], passes=rec["passes"],
-             accept_threshold=rec["accept_threshold"], seconds=rec["sample_seconds"],
-             launches=rec["launches"])
-        if "untrained" in out or not np.isfinite(rec["mmd"]):
-            raise AssertionError("bingham_train: --test did not evaluate the checkpoint")
-    return kernel_launches()
+    ckpt, log = os.path.join(tmp, "ck"), os.path.join(tmp, "log.jsonl")
+    t0 = time.perf_counter()
+    curve = bingham.main([BINGHAM_COV, "--steps", str(steps), "--mmd-every", str(every),
+                          "--print-every", str(TRAIN["bingham_print_every"]),
+                          "--out-dir", tmp, "--ckpt", ckpt, "--log", log])[BINGHAM_COV]
+    sync()
+    seconds = time.perf_counter() - t0
+    train_launches = obs.counter("ops.mmd.launches")
+    rows = read_jsonl(log)
+    # steps/s up to the first evaluation: later rows' clock includes it
+    clean = [r for r in rows if r["step"] <= curve[0]["step"]][-1]
+    emit("bingham_train", steps=steps, seconds=seconds, steps_per_sec=clean["steps_per_sec"],
+         ms_per_step=1e3 / clean["steps_per_sec"], steps_per_sec_at_step=clean["step"],
+         loss_first=rows[0]["loss"], loss_last=rows[-1]["loss"], curve=curve,
+         gaussian_kernel_sum_launches=train_launches,
+         files=sorted(f for f in os.listdir(tmp) if f.endswith(".json")))
+    with open(os.path.join(tmp, f"torch_bingham_mmd_curve_{BINGHAM_COV}.json")) as f:
+        stored = json.load(f)
+    if stored != curve or len(curve) != 2 or curve[-1]["step"] != steps:
+        raise AssertionError(f"bingham_train: curve {curve}, file {stored}")
+    if not all(np.isfinite(c["mmd"]) for c in curve):
+        raise AssertionError(f"bingham_train: MMD not finite: {curve}")
+    if train_launches != 6:
+        raise AssertionError(f"bingham_train: {train_launches} MMD kernel launches, not 6")
+    if not all(np.isfinite(r["loss"]) for r in rows) or latest_step(ckpt) != steps:
+        raise AssertionError("bingham_train: non-finite loss or no final checkpoint")
+    recs, _ = evaluate(bingham.main, [BINGHAM_COV, "--test", "--out-dir", tmp, "--ckpt", ckpt])
+    rec = recs[BINGHAM_COV][0]
+    emit("bingham_train", run="test_on_checkpoint", mmd=rec["mmd"], passes=rec["passes"],
+         accept_threshold=rec["accept_threshold"], seconds=rec["sample_seconds"],
+         launches=rec["launches"])
+    if not np.isfinite(rec["mmd"]):
+        raise AssertionError("bingham_train: --test gave a non-finite MMD")
 
 
-def small_protein_agreement() -> None:
-    """The protein slice on the card against the same on the CPU: ProtNet
-    dim 64 / 4 heads / t_depth 2 / c_depth 3 with every flag (frame_pool,
-    cross_depth 2, rel_frame, equiv_head), float32, one seeded init with its
-    output layer scaled by 0.1, 4 synthetic pairs of 40 / 20 residues.  The
-    forward: rtol 1e-4 of its largest output; a DDIM-10 chain at T = 50 from
-    one x_init: 1e-3 on rotation entries and of 1 + the largest |shift|; 5
-    Adam steps (lr 1e-3) on the same batches, t and noise (drawn once on the
-    CPU): each loss rtol 1e-4."""
-    cfg = dict(dim=64, heads=4, t_depth=2, c_depth=3, frame_pool=True, cross_depth=2,
-               rel_frame=True, equiv_head=True)
-    torch.manual_seed(13)
-    init = ProtNet(**cfg)
-    with torch.no_grad():
-        init.head_out.weight.mul_(0.1)
-        init.head_out.bias.mul_(0.1)
-    rng = np.random.default_rng(13)
-    batch_np = pad_prot_batch([synthetic_prot_pair(rng, 40 - i, 20 - i) for i in range(4)])
-    t_fwd = torch.tensor([0, 10, 30, 49])
-    x_init = AffineT(haar_rotations(torch.Generator().manual_seed(14), (4,)),
-                     torch.randn(4, 3, generator=torch.Generator().manual_seed(15)))
-    proc_cpu = ProjectedSE3Diffusion(50, clip_shift=75.0, device="cpu")
-    gen = torch.Generator().manual_seed(16)
-    t_train = torch.randint(0, 50, (5, 4), generator=gen)
-    noise = [proc_cpu.sample_noise(gen, t_train[i]) for i in range(5)]
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        model = ProtNet(**cfg)
-        model.load_state_dict(init.state_dict())
-        model = model.to(dev)
-        proc = proc_cpu if dev == "cpu" else ProjectedSE3Diffusion(50, clip_shift=75.0,
-                                                                   device=dev)
-        batch = to_device(batch_np, dev)
-        proj = ProtProjection(batch)
-        with torch.inference_mode():
-            fwd = model.eval()(proj(AffineT.identity((4,), device=dev)), t_fwd.to(dev))
-            chain = proc.ddim_sample_loop(model, None, (4,), 10, proj,
-                                          x_init=AffineT(x_init.rot.to(dev), x_init.shift.to(dev)))
-        opt = make_optimizer(model.train().named_parameters(), 1e-3)
-        step = make_dp_train_step(protein.make_loss_fn(model, proc), model, opt)
-        state = TrainState(model, opt, torch.Generator(device=dev))
-        losses = []
-        for i in range(5):
-            state, m = step(state, (batch, t_train[i].to(dev),
-                                    (noise[i].rot.to(dev), noise[i].shift.to(dev))))
-            losses.append(float(m["loss"]))
-        outs[dev] = (torch.cat((fwd.rot_g, fwd.shift_g), -1).cpu(), chain.rot.cpu(),
-                     chain.shift.cpu(), losses)
-    (f_c, r_c, s_c, l_c), (f_g, r_g, s_g, l_g) = outs["cpu"], outs["cuda"]
-    fwd_err = float((f_c - f_g).abs().max()) / float(f_c.abs().max())
-    rot_err = float((r_c - r_g).abs().max())
-    shift_err = float((s_c - s_g).abs().max()) / (1.0 + float(s_c.abs().max()))
-    loss_err = max(abs(a - b) / abs(a) for a, b in zip(l_c, l_g))
-    emit("small_agreement", run="protein", forward_rel_err=fwd_err, forward_rtol=1e-4,
-         ddim_10_rot_err=rot_err, ddim_10_shift_rel_err=shift_err, chain_tol=1e-3,
-         loss_cpu=l_c, loss_cuda=l_g, loss_max_rel_err=loss_err, loss_rtol=1e-4)
-    if not (fwd_err < 1e-4 and rot_err < 1e-3 and shift_err < 1e-3 and loss_err < 1e-4):
-        raise AssertionError(f"protein: card and CPU disagree: forward {fwd_err}, chain "
-                             f"{rot_err} / {shift_err}, losses {loss_err}")
-
-
-def phase_protein_path(tmp: str) -> dict:
-    """The protein docking path at the headline width: the forward's time in
-    float32 and bf16, then experiments/protein.py --test --bf16 with each
-    sampler row (the seeded init, its output layer scaled by
-    PROTEIN_HEAD_SCALE, passed as a state dict; records into ``tmp``);
-    returns each kernel's launches in this phase."""
+def protein_init(tmp: str, se3: bool, name: str) -> str:
+    """ProtNet at the headline width (seeded init): the parameter count, the
+    forward's output and ms in float32 and bf16; then the init with its
+    output layer scaled by PROTEIN_HEAD_SCALE written to ``tmp`` as a state
+    dict, whose path is returned."""
     device = torch.device("cuda")
     torch.manual_seed(0)
     with torch.device(device):
         model = ProtNet(dim=PROTEIN["dim"], heads=PROTEIN["heads"], t_depth=PROTEIN["t_depth"],
-                        c_depth=PROTEIN["c_depth"], frame_pool=True,
-                        cross_depth=PROTEIN["cross_depth"], rel_frame=True,
-                        equiv_head=True).eval()
+                        c_depth=PROTEIN["c_depth"], se3=se3, frame_pool=True,
+                        cross_depth=PROTEIN["cross_depth"], rel_frame=True, equiv_head=True).eval()
     n_params = sum(p.numel() for p in model.parameters())
     if n_params != PROTEIN["params"]:
-        raise AssertionError(f"ProtNet at the headline width has {n_params} parameters")
+        raise AssertionError(f"ProtNet(se3={se3}) at the headline width has {n_params} parameters")
     rng = np.random.default_rng(0)
-    pairs = [synthetic_prot_pair(rng, PROTEIN["receptor"], PROTEIN["ligand"])
-             for _ in range(PROTEIN["batch"])]
-    batch = to_device(pad_prot_batch(pairs), device)
-    x_in = ProtProjection(batch)(AffineT.identity((PROTEIN["batch"],), device=device))
+    batch = to_device(pad_prot_batch([synthetic_prot_pair(rng, PROTEIN["receptor"], PROTEIN["ligand"])
+                                      for _ in range(PROTEIN["batch"])]), device)
+    pose = AffineT.identity((PROTEIN["batch"],), device=device) if se3 else torch.zeros(
+        PROTEIN["batch"], 6, device=device)
+    x_in = ProtProjection(batch, se3=se3)(pose)
     t_in = torch.full((PROTEIN["batch"],), 500, device=device)
     flops = protein_flops(PROTEIN["dim"], PROTEIN["t_depth"], PROTEIN["c_depth"],
                           PROTEIN["batch"], PROTEIN["receptor"], PROTEIN["ligand"],
@@ -1417,56 +1042,54 @@ def phase_protein_path(tmp: str) -> dict:
                           equiv_head=True)
     fwd = {}
     with torch.inference_mode():
-        for name, bf16 in (("fp32", False), ("bf16", True)):
+        for prec, bf16 in (("fp32", False), ("bf16", True)):
             model.bf16 = bf16
+            out = model(x_in, t_in)
+            if not se3 and (out.shape != (PROTEIN["batch"], 6) or not torch.isfinite(out).all()):
+                raise AssertionError(f"{name}: forward {prec} gave {out.shape}")
             ms = time_cuda(lambda: model(x_in, t_in), 10, warmup=3)
-            fwd[name] = dict(ms=ms, tflops=flops / ms / 1e9)
-    emit("protein_setup", forward_gflop=flops / 1e9,
-         forward_ms_fp32=fwd["fp32"]["ms"], forward_tflops_fp32=fwd["fp32"]["tflops"],
-         forward_ms_bf16=fwd["bf16"]["ms"], forward_tflops_bf16=fwd["bf16"]["tflops"],
-         **PROTEIN)
+            fwd.update({f"forward_ms_{prec}": ms, f"forward_tflops_{prec}": flops / ms / 1e9})
+    emit(name, run="forward", forward_gflop=flops / 1e9, **fwd, **PROTEIN)
     with torch.no_grad():
         model.head_out.weight.mul_(PROTEIN_HEAD_SCALE)
         model.head_out.bias.mul_(PROTEIN_HEAD_SCALE)
-    weights = os.path.join(tmp, "init_head_scaled.pt")
+    weights = os.path.join(tmp, f"{name}_init_head_scaled.pt")
     torch.save(model.state_dict(), weights)
     del model, x_in
     torch.cuda.empty_cache()
-
-    obs.reset()
-    samples = protein.SAMPLES
-    try:
-        for name, flags, per_pose, evals, launches in PROTEIN_ROWS:
-            protein.SAMPLES = per_pose
-            rec, out = run_captured(protein.main, PROTEIN_ARGV + flags + [
-                "--test", "--ckpt", weights, "--out-dir", tmp])
-            emit("protein_run", sampler=name, seconds=rec["sample_seconds"],
-                 model_evals=rec["model_evals"], launches=rec["launches"], poses=rec["poses"],
-                 samples_per_pose=per_pose, sweeps=rec["sweeps"], orth_err=rec["orth_err"],
-                 det_err=rec["det_err"], angle_p50=float(np.median(rec["angles"])),
-                 shift_p50=float(np.median(rec["shifts"])))
-            if evals is None:  # Picard: one batched call a sweep, then the final estimate
-                evals = max(rec["sweeps"]) + 1
-            ok = (rec["finite"] and rec["orth_err"] < 1e-4 and rec["det_err"] < 1e-4
-                  and rec["poses"] == PROTEIN["batch"] * per_pose
-                  and rec["model_evals"] == evals and rec["launches"] == launches
-                  and "no checkpoint found" not in out)
-            if not ok:
-                raise AssertionError(f"protein row {name}: "
-                                     f"{ {k: v for k, v in rec.items() if k not in ('angles', 'shifts')} }")
-    finally:
-        protein.SAMPLES = samples
-    total = kernel_launches()
-    if total["igso3_logpdf_score"] == 0:
-        raise AssertionError("the protein path launched no IGSO(3) kernel")
-    return total
+    return weights
 
 
-def protein_exact_resume(tmp: str) -> dict:
+def protein_record(rec: dict) -> dict:
+    return {k: v for k, v in rec.items() if k not in ("angles", "shifts")}
+
+
+def phase_protein_path(tmp: str) -> None:
+    """The protein docking path at the headline width: the forward, then
+    experiments/protein.py --test --bf16 with each sampler row on the
+    seeded init (its output layer scaled), records into ``tmp``."""
+    weights = protein_init(tmp, True, "protein_setup")
+    for name, flags, per_pose, evals, launches in PROTEIN_ROWS:
+        with mock.patch.object(protein, "SAMPLES", per_pose):
+            rec, _ = evaluate(protein.main, PROTEIN_ARGV + flags + ["--test", "--ckpt", weights, "--out-dir", tmp])
+        emit("protein_run", sampler=name, seconds=rec["sample_seconds"],
+             model_evals=rec["model_evals"], launches=rec["launches"], poses=rec["poses"],
+             samples_per_pose=per_pose, sweeps=rec["sweeps"], orth_err=rec["orth_err"],
+             det_err=rec["det_err"], angle_p50=float(np.median(rec["angles"])),
+             shift_p50=float(np.median(rec["shifts"])))
+        if evals is None:  # Picard: one batched call a sweep, then the final estimate
+            evals = max(rec["sweeps"]) + 1
+        ok = (rec["finite"] and rec["orth_err"] < 1e-4 and rec["det_err"] < 1e-4
+              and rec["poses"] == PROTEIN["batch"] * per_pose
+              and rec["model_evals"] == evals and rec["launches"] == launches)
+        if not ok:
+            raise AssertionError(f"protein row {name}: {protein_record(rec)}")
+
+
+def protein_exact_resume(tmp: str) -> None:
     """At the headline width with the production flags (bf16, fused Adam with
     bf16 moments, K = 8: one CUDA graph replayed a step): 2N replayed steps
-    against N + save + restore + N, from the same init and batches.
-    Returns the largest weight difference."""
+    against N + save + restore + N, from the same init and batches."""
     n = PROTEIN_TRAIN["exact_n"]
     args = protein.parse_args(PROTEIN_ARGV + ["--opt-impl", "fused", "--opt-state-dtype",
                                               "bf16", "--steps-per-call", str(n)])
@@ -1496,70 +1119,58 @@ def protein_exact_resume(tmp: str) -> dict:
     resumed, _ = step(resumed, groups[1])
     sync()
     pa, pb = full.model.state_dict(), resumed.model.state_dict()
-    return {"resume_replayed": max(float((pa[k] - pb[k]).abs().max()) for k in pa)}
+    diff = max(float((pa[k] - pb[k]).abs().max()) for k in pa)
+    emit("protein_train", run="exact_resume", n=n, max_abs_diff=diff)
+    if diff != 0.0:
+        raise AssertionError(f"protein_train: resumed weights differ by {diff}")
 
 
-def phase_protein_train(tmp: str) -> dict:
-    """Protein training at the headline width through ``protein.main``;
-    returns each kernel's launches in this phase."""
-    obs.reset()
-    timed = PROTEIN_TRAIN["timed"]
-    production = ["--opt-impl", "fused", "--opt-state-dtype", "bf16"]
-    # (name, flags, warm-up steps: 10 at K = 1, two calls at K = 8)
-    variants = [("bf16", ["--steps-per-call", "1"], 10),
-                ("bf16_fused_bf16moments_k8", production + ["--steps-per-call", "8"], 16)]
-    for name, extra, warm in variants:
-        steps = warm + timed
-        ckpt, log = os.path.join(tmp, name), os.path.join(tmp, f"{name}.jsonl")
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        state = protein.main(PROTEIN_ARGV + extra + [
-            "--steps", str(steps), "--print-every", str(steps), "--ckpt", ckpt, "--log", log])
-        seconds = time.perf_counter() - t0
-        rows = read_jsonl(log)
-        sps = rows[-1]["steps_per_sec"]
-        emit("protein_train", variant=name, steps=steps, timed_steps=timed,
-             ms_per_step=1e3 / sps, steps_per_sec=sps, loss_last=rows[-1]["loss"],
-             grad_norm=rows[-1]["grad_norm"], peak_memory_bytes=torch.cuda.max_memory_allocated(),
-             seconds=seconds)
-        if state.step != steps or latest_step(ckpt) != steps or not np.isfinite(rows[-1]["loss"]):
-            raise AssertionError(f"protein_train {name}: step {state.step}, rows {rows}")
-        del state
-        shutil.rmtree(ckpt)
+PRODUCTION = ["--opt-impl", "fused", "--opt-state-dtype", "bf16", "--steps-per-call", "8"]
 
-    # the loss falls (a row a call of 8: the last sub-step's loss), then --test
-    # on the checkpoint
-    ckpt, log = os.path.join(tmp, "fall"), os.path.join(tmp, "fall.jsonl")
-    n = PROTEIN_TRAIN["fall_steps"]
-    run_captured(protein.main, PROTEIN_ARGV + production + [
-        "--steps-per-call", "8", "--steps", str(n), "--print-every", "1", "--ckpt", ckpt,
-        "--log", log])
+
+def timed_protein_run(name: str, argv: list, tmp: str, steps: int) -> None:
+    """``protein.main(argv)`` for ``steps`` steps, timed by its last logged
+    row; the step, the checkpoint and the loss checked."""
+    ckpt, log = os.path.join(tmp, name), os.path.join(tmp, f"{name}.jsonl")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = protein.main(argv + ["--steps", str(steps), "--print-every", str(steps), "--ckpt", ckpt,
+                                 "--log", log])
+    seconds = time.perf_counter() - t0
     rows = read_jsonl(log)
-    first = float(np.mean([r["loss"] for r in rows[:5]]))
-    last = float(np.mean([r["loss"] for r in rows[-5:]]))
-    emit("protein_train", run="falling_loss", steps=n, rows=len(rows), loss_first_5_rows=first,
-         loss_last_5_rows=last)
-    if len(rows) != n // 8 or not all(np.isfinite(r["loss"]) for r in rows) or not last < first:
-        raise AssertionError(f"protein_train: loss did not fall ({first} -> {last})")
-    samples = protein.SAMPLES
-    protein.SAMPLES = 1
-    try:
-        rec, out = run_captured(protein.main, PROTEIN_ARGV + [
-            "--test", "--sampler", "ddim", "--ckpt", ckpt, "--out-dir", tmp])
-    finally:
-        protein.SAMPLES = samples
+    sps = rows[-1]["steps_per_sec"]
+    emit(name, steps=steps, timed_steps=PROTEIN_TRAIN["timed"], ms_per_step=1e3 / sps, steps_per_sec=sps,
+         loss_last=rows[-1]["loss"], grad_norm=rows[-1]["grad_norm"],
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), seconds=seconds)
+    if state.step != steps or latest_step(ckpt) != steps or not np.isfinite(rows[-1]["loss"]):
+        raise AssertionError(f"{name}: step {state.step}, rows {rows}")
+    del state
+    shutil.rmtree(ckpt)
+
+
+def phase_protein_train(tmp: str) -> None:
+    """Protein training at the headline width through ``protein.main``:
+    timed variants (warm-up: 10 steps at K = 1, two calls at K = 8), a
+    falling loss (a row a call of 8) and ``--test`` on its checkpoint, the
+    replayed resume, two epochs of ``--epoch-accum``."""
+    timed = PROTEIN_TRAIN["timed"]
+    timed_protein_run("protein_train_bf16", PROTEIN_ARGV + ["--steps-per-call", "1"], tmp, 10 + timed)
+    timed_protein_run("protein_train_bf16_fused_bf16moments_k8", PROTEIN_ARGV + PRODUCTION, tmp, 16 + timed)
+
+    n = PROTEIN_TRAIN["fall_steps"]
+    _, ckpt, _ = falling_run("protein_train", protein.main, PROTEIN_ARGV + PRODUCTION, tmp, n, window=5,
+                             calls=n // 8)
+    with mock.patch.object(protein, "SAMPLES", 1):
+        rec, _ = evaluate(protein.main, PROTEIN_ARGV + ["--test", "--sampler", "ddim", "--ckpt", ckpt,
+                                                        "--out-dir", tmp])
     emit("protein_train", run="test_on_checkpoint", sampler="ddim_50",
          seconds=rec["sample_seconds"], poses=rec["poses"],
          angle_p50=float(np.median(rec["angles"])), shift_p50=float(np.median(rec["shifts"])))
-    if "no checkpoint found" in out or not rec["finite"] or rec["orth_err"] >= 1e-4:
-        raise AssertionError("protein_train: --test did not evaluate the checkpoint")
+    if not rec["finite"] or rec["orth_err"] >= 1e-4:
+        raise AssertionError(f"protein_train --test: {protein_record(rec)}")
     shutil.rmtree(ckpt)
 
-    diffs = protein_exact_resume(tmp)
-    emit("protein_train", run="exact_resume", n=PROTEIN_TRAIN["exact_n"], max_abs_diff=diffs,
-         bit_identical=all(d == 0.0 for d in diffs.values()))
-    if any(d != 0.0 for d in diffs.values()):
-        raise AssertionError(f"protein_train: resumed weights differ: {diffs}")
+    protein_exact_resume(tmp)
 
     epochs = PROTEIN_TRAIN["accum_epochs"]
     ckpt, log = os.path.join(tmp, "accum"), os.path.join(tmp, "accum.jsonl")
@@ -1572,133 +1183,18 @@ def phase_protein_train(tmp: str) -> dict:
     if latest_step(ckpt) != epochs or len(rows) != epochs or \
             not all(np.isfinite(r["loss"]) for r in rows):
         raise AssertionError(f"protein_train: --epoch-accum rows {rows}")
-    return kernel_launches()
 
 
-def small_euler_agreement() -> None:
-    """The Euler arms on the card against the same on the CPU, from one init
-    and the same x_init and noise (drawn once on the CPU): the aircraft
-    Euler chain (PlaneNet dim 64 / 2 layers, head scaled by 0.1,
-    ProjectedGaussianDiffusion T = 20, B 4 x 32 points, Haar-Euler x_init);
-    a protein Euler DDPM (ProtNet dim 64 / 4 heads / t_depth 2 / c_depth 3,
-    se3=False, every flag, head scaled by 0.1, ProjectedEulerDiffusion
-    T = 20, 4 pairs): each of its steps from the CPU chain's state.  The
-    aircraft chain: 1e-3 of 1 + the state's largest entry; a protein step
-    1e-4 of it.  The protein chain itself is not gated: an unclipped Euler
-    chain of an untrained model grows by 1/sqrt(alpha_t) a step (to ~1e4
-    here), its angles reach hundreds of radians, and the two devices' sin
-    and cos of those part in the last bits, which the ligand's moved
-    positions feed back; its free-running difference is printed.  Five
-    lock-arm train steps for each arm (batch 32, the same t and noise, Adam
-    lr 1e-3): each loss rtol 1e-4."""
-    out = {}
-    # aircraft Euler chain
-    torch.manual_seed(21)
-    init = PlaneNet(dim=64, heads=4, layers=2)
-    with torch.no_grad():
-        init.head.weight.mul_(0.1)
-        init.head.bias.mul_(0.1)
-    data = torch.from_numpy(np.random.default_rng(21).standard_normal((4, 32, 3)).astype(
-        np.float32))
-    x_init = torch.stack(rmat_to_euler(haar_rotations(torch.Generator().manual_seed(22), (4,))),
-                         -1)
-    noise = torch.randn(20, 4, 3, generator=torch.Generator().manual_seed(23))
-    chains = {}
-    for dev in ("cpu", "cuda"):
-        proc = ProjectedGaussianDiffusion(20, device=dev)
-        with torch.inference_mode():
-            chains[dev] = proc.p_sample_loop(init.to(dev).eval(), None, (4, 3),
-                                             projection=PointCloudProj(data.to(dev), so3=False),
-                                             x_init=x_init.to(dev), noise=noise.to(dev)).cpu()
-    ref = chains["cpu"]
-    out["aircraft_chain_err"] = float((chains["cuda"] - ref).abs().max()) / (
-        1.0 + float(ref.abs().max()))
-    # protein Euler DDPM
-    cfg = dict(dim=64, heads=4, t_depth=2, c_depth=3, se3=False, frame_pool=True, cross_depth=2,
-               rel_frame=True, equiv_head=True)
-    torch.manual_seed(24)
-    pinit = ProtNet(**cfg)
-    with torch.no_grad():
-        pinit.head_out.weight.mul_(0.1)
-        pinit.head_out.bias.mul_(0.1)
-    rng = np.random.default_rng(24)
-    batch_np = pad_prot_batch([synthetic_prot_pair(rng, 40 - i, 20 - i) for i in range(4)])
-    proc_cpu = ProjectedEulerDiffusion.create(20, device="cpu")
-    x0 = torch.randn(4, 6, generator=torch.Generator().manual_seed(25)) * proc_cpu._block_scale()
-    pnoise = torch.randn(20, 4, 6, generator=torch.Generator().manual_seed(26))
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        proc = proc_cpu if dev == "cpu" else ProjectedEulerDiffusion.create(20, device=dev)
-        model = ProtNet(**cfg)
-        model.load_state_dict(pinit.state_dict())
-        runs[dev] = (proc, model.to(dev).eval(),
-                     ProtProjection(to_device(batch_np, dev), se3=False))
-    (cproc, cmodel, cproj), (gproc, gmodel, gproj) = runs["cpu"], runs["cuda"]
-    step_err, x_cpu, x_card = 0.0, x0, x0.cuda()
-    with torch.inference_mode():
-        for j, i in enumerate(range(19, -1, -1)):
-            t = torch.full((4,), i)
-            nxt = cproc.p_sample(cmodel, None, x_cpu, t, projection=cproj, noise=pnoise[j])
-            anchored = gproc.p_sample(gmodel, None, x_cpu.cuda(), t.cuda(), projection=gproj,
-                                      noise=pnoise[j].cuda()).cpu()
-            step_err = max(step_err, float((anchored - nxt).abs().max())
-                           / (1.0 + float(nxt.abs().max())))
-            x_card = gproc.p_sample(gmodel, None, x_card, t.cuda(), projection=gproj,
-                                    noise=pnoise[j].cuda())
-            x_cpu = nxt
-    ref = x_cpu
-    out["protein_step_err"] = step_err
-    out["protein_free_chain_err"] = float((x_card.cpu() - ref).abs().max()) / (
-        1.0 + float(ref.abs().max()))
-    out["protein_state_max"] = float(ref.abs().max())
-    # lock-arm losses
-    for param in ("so3", "euler"):
-        args = lock.parse_args(["--param", param, "--timesteps", "1000"])
-        gen = torch.Generator().manual_seed(27)
-        batches = [lock.lock_batch(gen, 32, param) for _ in range(5)]
-        ts = [torch.randint(0, args.timesteps, (32,), generator=gen) for _ in range(5)]
-        proc_cpu = lock.build(args, "cpu")[1]
-        if param == "so3":
-            noises = [proc_cpu.sample_noise(gen, t) for t in ts]
-        else:
-            noises = [torch.randn(32, 3, generator=gen) for _ in ts]
-        state0 = lock.build(args, "cpu")[0].state_dict()
-        losses = {}
-        for dev in ("cpu", "cuda"):
-            model, proc = lock.build(args, dev)
-            model.load_state_dict(state0)
-            opt = make_optimizer(model.named_parameters(), 1e-3)
-            step = make_dp_train_step(lock.make_loss_fn(model, proc), model, opt,
-                                      skip_nonfinite=True)
-            state = TrainState(model, opt, torch.Generator(device=dev))
-            losses[dev] = []
-            for b, t, n in zip(batches, ts, noises):
-                state, m = step(state, (b.to(dev), t.to(dev), n.to(dev)))
-                losses[dev].append(float(m["loss"]))
-        out[f"lock_{param}_loss_rel_err"] = max(
-            abs(a - b) / abs(a) for a, b in zip(losses["cpu"], losses["cuda"]))
-        out[f"lock_{param}_losses_cuda"] = losses["cuda"]
-    emit("small_agreement", run="euler", chain_tol=1e-3, step_tol=1e-4, loss_rtol=1e-4, **out)
-    if not (out["aircraft_chain_err"] < 1e-3 and out["protein_step_err"] < 1e-4
-            and out["lock_so3_loss_rel_err"] < 1e-4 and out["lock_euler_loss_rel_err"] < 1e-4):
-        raise AssertionError(f"Euler arms: card and CPU disagree: {out}")
-
-
-def phase_euler_aircraft(tmp: str) -> dict:
+def phase_euler_aircraft(tmp: str) -> None:
     """The aircraft Euler arm at full width through ``aircraft.main``: timed
     ``--bf16 --steps-per-call 8`` steps, a fp32 run whose loss must fall,
-    and ``--test --euler-init haar`` on its checkpoint (a 1000-step chain
-    a shape, gated finite and on SO(3)); returns each kernel's launches."""
-    obs.reset()
-    base = ["--dim", str(PATH["dim"]), "--heads", str(PATH["heads"]), "--layers",
-            str(PATH["layers"]), "--batch", str(PATH["batch"]), "--samples", str(PATH["samples"]),
-            "--timesteps", str(PATH["timesteps"])]
+    and ``--test --euler-init haar`` on its checkpoint."""
     steps = TRAIN["warmup"] + TRAIN["timed"]
     log = os.path.join(tmp, "euler_k8.jsonl")
     torch.cuda.reset_peak_memory_stats()
-    state = aircraft.main(base + ["--bf16", "--steps-per-call", "8", "--steps", str(steps),
-                                  "--print-every", str(TRAIN["print_every"]), "--ckpt",
-                                  os.path.join(tmp, "euler_k8"), "--log", log])
+    state = aircraft.main(AIRCRAFT_ARGV + ["--bf16", "--steps-per-call", "8", "--steps", str(steps),
+                                           "--print-every", str(TRAIN["print_every"]), "--ckpt",
+                                           os.path.join(tmp, "euler_k8"), "--log", log])
     rows = read_jsonl(log)
     sps = rows[-1]["steps_per_sec"]
     emit("euler_aircraft", variant="bf16_k8", steps=steps, timed_steps=TRAIN["timed"],
@@ -1706,112 +1202,24 @@ def phase_euler_aircraft(tmp: str) -> dict:
          test_loss=rows[-1]["test_loss"], peak_memory_bytes=torch.cuda.max_memory_allocated())
     if state.step != steps or not all(np.isfinite(r["loss"]) for r in rows):
         raise AssertionError(f"euler_aircraft: step {state.step}, rows {rows}")
-
-    ckpt, log = os.path.join(tmp, "euler_fall"), os.path.join(tmp, "euler_fall.jsonl")
-    n = EULER["fall_steps"]
-    run_captured(aircraft.main, base + ["--steps", str(n), "--print-every", "1", "--ckpt", ckpt,
-                                        "--log", log])
-    rows = read_jsonl(log)
-    first = float(np.mean([r["loss"] for r in rows[:10]]))
-    last = float(np.mean([r["loss"] for r in rows[-10:]]))
-    emit("euler_aircraft", run="falling_loss", steps=n, loss_first_10=first, loss_last_10=last,
-         test_loss_first=rows[0]["test_loss"], test_loss_last=rows[-1]["test_loss"])
-    if len(rows) != n or not all(np.isfinite(r["loss"]) for r in rows) or not last < first:
-        raise AssertionError(f"euler_aircraft: loss did not fall ({first} -> {last})")
-
-    sampled = []
-    sample_rotations, per_shape = aircraft.sample_rotations, aircraft.SAMPLES_PER_SHAPE
-
-    def recorded(*a, **kw):
-        rots = sample_rotations(*a, **kw)
-        sampled.append(rots)
-        return rots
-
-    aircraft.sample_rotations, aircraft.SAMPLES_PER_SHAPE = recorded, 1
-    try:
-        t0 = time.perf_counter()
-        res, out = run_captured(aircraft.main, base + [
-            "--test", "--euler-init", "haar", "--max-shapes", str(EULER["test_shapes"]),
-            "--ckpt", ckpt])
-        sync()
-        seconds = time.perf_counter() - t0
-    finally:
-        aircraft.sample_rotations, aircraft.SAMPLES_PER_SHAPE = sample_rotations, per_shape
-    errs = check_rotations("euler_aircraft_test", sampled[0])
-    emit("euler_aircraft", run="test_on_checkpoint", euler_init="haar", seconds=seconds,
-         chains=len(sampled), samples=len(res), steps=PATH["timesteps"],
-         median_angle=float(np.median(res)), **errs)
-    if "no checkpoint found" in out or res.shape != (EULER["test_shapes"],) \
-            or not np.isfinite(res).all() or "(eul)" not in out:
-        raise AssertionError("euler_aircraft: --test did not evaluate the checkpoint")
-    return kernel_launches()
+    _, ckpt, _ = falling_run("euler_aircraft", aircraft.main, AIRCRAFT_ARGV, tmp, EULER["fall_steps"])
+    out = aircraft_test("euler_aircraft", AIRCRAFT_ARGV + ["--euler-init", "haar", "--ckpt", ckpt],
+                        EULER["test_shapes"])
+    if "(eul)" not in out:
+        raise AssertionError("euler_aircraft: --test did not run the Euler arm")
 
 
-def phase_euler_protein(tmp: str) -> dict:
+def phase_euler_protein(tmp: str) -> None:
     """The protein Euler arm (--se3 off) at the headline width: the forward
     in float32 and bf16, 16 + 96 steps with the production flags, then
     ``--test`` with the 1000-step ancestral chain (one sample a pose, the
-    seeded init with its output layer scaled by PROTEIN_HEAD_SCALE);
-    rotations gated on SO(3), shifts on finiteness."""
-    device = torch.device("cuda")
-    torch.manual_seed(0)
-    with torch.device(device):
-        model = ProtNet(dim=PROTEIN["dim"], heads=PROTEIN["heads"], t_depth=PROTEIN["t_depth"],
-                        c_depth=PROTEIN["c_depth"], se3=False, frame_pool=True,
-                        cross_depth=PROTEIN["cross_depth"], rel_frame=True,
-                        equiv_head=True).eval()
-    n_params = sum(p.numel() for p in model.parameters())
-    if n_params != PROTEIN["params"]:
-        raise AssertionError(f"ProtNet(se3=False) at the headline width has {n_params} parameters")
-    rng = np.random.default_rng(0)
-    pairs = [synthetic_prot_pair(rng, PROTEIN["receptor"], PROTEIN["ligand"])
-             for _ in range(PROTEIN["batch"])]
-    batch = to_device(pad_prot_batch(pairs), device)
-    x_in = ProtProjection(batch, se3=False)(torch.zeros(PROTEIN["batch"], 6, device=device))
-    t_in = torch.full((PROTEIN["batch"],), 500, device=device)
-    fwd = {}
-    with torch.inference_mode():
-        for name, bf16 in (("fp32", False), ("bf16", True)):
-            model.bf16 = bf16
-            out = model(x_in, t_in)
-            if out.shape != (PROTEIN["batch"], 6) or not torch.isfinite(out).all():
-                raise AssertionError(f"euler_protein: forward {name} gave {out.shape}")
-            fwd[name] = time_cuda(lambda: model(x_in, t_in), 10, warmup=3)
-    emit("euler_protein", params=n_params, forward_ms_fp32=fwd["fp32"],
-         forward_ms_bf16=fwd["bf16"])
-    with torch.no_grad():
-        model.head_out.weight.mul_(PROTEIN_HEAD_SCALE)
-        model.head_out.bias.mul_(PROTEIN_HEAD_SCALE)
-    weights = os.path.join(tmp, "euler_init_head_scaled.pt")
-    torch.save(model.state_dict(), weights)
-    del model, x_in
-    torch.cuda.empty_cache()
-
-    obs.reset()
-    steps = 16 + PROTEIN_TRAIN["timed"]
-    ckpt, log = os.path.join(tmp, "euler_train"), os.path.join(tmp, "euler_train.jsonl")
-    torch.cuda.reset_peak_memory_stats()
-    state = protein.main(PROTEIN_EULER_ARGV + [
-        "--opt-impl", "fused", "--opt-state-dtype", "bf16", "--steps-per-call", "8",
-        "--steps", str(steps), "--print-every", str(steps), "--ckpt", ckpt, "--log", log])
-    rows = read_jsonl(log)
-    sps = rows[-1]["steps_per_sec"]
-    emit("euler_protein", variant="bf16_fused_bf16moments_k8", steps=steps,
-         timed_steps=PROTEIN_TRAIN["timed"], ms_per_step=1e3 / sps, steps_per_sec=sps,
-         loss_last=rows[-1]["loss"], grad_norm=rows[-1]["grad_norm"],
-         peak_memory_bytes=torch.cuda.max_memory_allocated())
-    if state.step != steps or latest_step(ckpt) != steps or not np.isfinite(rows[-1]["loss"]):
-        raise AssertionError(f"euler_protein: step {state.step}, rows {rows}")
-    del state
-    shutil.rmtree(ckpt)
-
-    samples = protein.SAMPLES
-    protein.SAMPLES = 1
-    try:
-        rec, out = run_captured(protein.main, PROTEIN_EULER_ARGV + [
-            "--test", "--ckpt", weights, "--out-dir", tmp])
-    finally:
-        protein.SAMPLES = samples
+    seeded init with its output layer scaled); rotations gated on SO(3),
+    shifts on finiteness."""
+    weights = protein_init(tmp, False, "euler_protein")
+    timed_protein_run("euler_protein_bf16_fused_bf16moments_k8", PROTEIN_EULER_ARGV + PRODUCTION, tmp,
+                      16 + PROTEIN_TRAIN["timed"])
+    with mock.patch.object(protein, "SAMPLES", 1):
+        rec, _ = evaluate(protein.main, PROTEIN_EULER_ARGV + ["--test", "--ckpt", weights, "--out-dir", tmp])
     emit("euler_protein", run="test_ancestral_1000", seconds=rec["sample_seconds"],
          model_evals=rec["model_evals"], poses=rec["poses"], finite=rec["finite"],
          orth_err=rec["orth_err"], det_err=rec["det_err"],
@@ -1819,18 +1227,15 @@ def phase_euler_protein(tmp: str) -> dict:
          shift_max=float(np.max(rec["shifts"])))
     ok = (rec["arm"] == "eul" and rec["finite"] and rec["orth_err"] < 1e-4
           and rec["det_err"] < 1e-4 and rec["poses"] == PROTEIN["batch"]
-          and rec["model_evals"] == PROTEIN["timesteps"] and "no checkpoint found" not in out)
+          and rec["model_evals"] == PROTEIN["timesteps"])
     if not ok:
-        raise AssertionError(f"euler_protein --test: "
-                             f"{ {k: v for k, v in rec.items() if k not in ('angles', 'shifts')} }")
-    return kernel_launches()
+        raise AssertionError(f"euler_protein --test: {protein_record(rec)}")
 
 
-def phase_so3_toy(tmp: str) -> dict:
+def phase_so3_toy(tmp: str) -> None:
     """experiments/so3_toy.py: training at K = 16 (one CUDA graph replayed a
     step), then --test with the ancestral, DDIM-50 and probability-flow-50
-    samplers over 512 chains; returns each kernel's launches."""
-    obs.reset()
+    samplers over 512 chains."""
     ckpt, log, out = (os.path.join(tmp, "toy"), os.path.join(tmp, "toy.jsonl"),
                       os.path.join(tmp, "toy_out"))
     steps = SUITES["toy_steps"]
@@ -1844,23 +1249,18 @@ def phase_so3_toy(tmp: str) -> dict:
     if latest_step(ckpt) != steps or not all(np.isfinite(r["loss"]) for r in rows):
         raise AssertionError(f"so3_toy: rows {rows}, checkpoint {latest_step(ckpt)}")
     for sampler in ("ancestral", "ddim", "pf"):
-        rec, text = run_captured(so3_toy.main, [
-            "--test", "--sampler", sampler, "--eval-batch", str(SUITES["eval_batch"]),
-            "--ckpt", ckpt, "--out-dir", out])
+        rec, _ = evaluate(so3_toy.main, ["--test", "--sampler", sampler, "--eval-batch",
+                                         str(SUITES["eval_batch"]), "--ckpt", ckpt, "--out-dir", out])
         emit("so3_toy", run="test", sampler=sampler, seconds=rec["sample_seconds"],
              model_evals=rec["model_evals"], launches=rec["launches"],
              percentiles=rec["percentiles"])
-        if "untrained" in text or not rec["finite"] or rec["count"] != SUITES["eval_batch"] \
-                or rec["launches"] != 0:
+        if not rec["finite"] or rec["count"] != SUITES["eval_batch"] or rec["launches"] != 0:
             raise AssertionError(f"so3_toy --test {sampler}: {rec['percentiles']}")
-    return kernel_launches()
 
 
-def phase_lock(tmp: str) -> dict:
+def phase_lock(tmp: str) -> None:
     """experiments/lock.py, both arms: eager steps (the non-finite skip
-    waits for the device), then --test over 512 chains; returns each
-    kernel's launches."""
-    obs.reset()
+    waits for the device), then --test over 512 chains."""
     out = os.path.join(tmp, "lock_out")
     steps = SUITES["lock_steps"]
     for param in ("so3", "euler"):
@@ -1874,68 +1274,17 @@ def phase_lock(tmp: str) -> dict:
              loss_last=rows[-1]["loss"])
         if latest_step(ckpt) != steps or not all(np.isfinite(r["loss"]) for r in rows):
             raise AssertionError(f"lock {param}: rows {rows}")
-        rec, text = run_captured(lock.main, ["--param", param, "--test", "--eval-batch",
-                                             str(SUITES["eval_batch"]), "--ckpt", ckpt,
-                                             "--out-dir", out])
+        rec, _ = evaluate(lock.main, ["--param", param, "--test", "--eval-batch", str(SUITES["eval_batch"]),
+                                      "--ckpt", ckpt, "--out-dir", out])
         emit("lock", param=param, run="test", seconds=rec["sample_seconds"],
              axis_y_mean=rec["axis_y_mean"], angle_mean=rec["angle_mean"],
              in_range=rec["in_range"], count=rec["count"])
-        if "untrained" in text or not rec["finite"] or rec["count"] != SUITES["eval_batch"]:
+        if not rec["finite"] or rec["count"] != SUITES["eval_batch"]:
             raise AssertionError(f"lock --test {param}: {rec}")
     files = sorted(os.listdir(out))
     if files != ["torch_lock_euler.json", "torch_lock_samples_euler.npy",
                  "torch_lock_samples_so3.npy", "torch_lock_so3.json"]:
         raise AssertionError(f"lock records: {files}")
-    return kernel_launches()
-
-
-def small_jigsaw_agreement() -> None:
-    """The jigsaw slice on the card against the same on the CPU, at size 128
-    and batch 2 from one seeded init: the rendered images (every pixel
-    equal), the CoordConv forward (1e-4 of the output's scale), the l2 loss
-    at fixed t and noise (rtol 1e-4), and a 20-step projected ancestral
-    chain from the same x_init and noise (1e-3 of 1 + the state's largest
-    entry, as the other chains are held)."""
-    size, b, steps = JIGSAW["size"], 2, 20
-    jp = JigsawPuzzle(size=size, seed=31)
-    row = torch.from_numpy(puzzle_rows([31], size)[0])
-    gen = torch.Generator().manual_seed(32)
-    x = torch.randn(16, 2, generator=gen) * 1.5
-    t = torch.randint(0, steps, (b,), generator=gen)
-    noise = torch.randn(b, 2, generator=gen)
-    x_init = torch.randn(b, 2, generator=gen)
-    chain_noise = torch.randn(steps, b, 2, generator=gen)
-    torch.manual_seed(33)
-    state0 = CoordConv(size=size).state_dict()
-    out = {}
-    for dev in ("cpu", "cuda"):
-        model = CoordConv(size=size)
-        model.load_state_dict(state0)
-        model = model.to(dev)
-        proc = ProjectedGaussianDiffusion(steps, loss_type="l2", device=dev)
-        imgs = jp(x.to(dev))
-        with torch.inference_mode():
-            fwd = model(imgs[:b], t.to(dev))
-            chain = proc.p_sample_loop(model, None, (b, 2), projection=jp, x_init=x_init.to(dev),
-                                       noise=chain_noise.to(dev))
-        loss = jigsaw.make_loss_fn(model, proc, b, size)(
-            None, (row.to(dev), t.to(dev), noise.to(dev)))
-        out[dev] = {"imgs": imgs.cpu(), "fwd": fwd.cpu(), "chain": chain.cpu(),
-                    "loss": float(loss.detach())}
-    cpu, card = out["cpu"], out["cuda"]
-    res = {
-        "pixels_differing": int((cpu["imgs"] != card["imgs"]).any(1).sum()),
-        "forward_err": float((card["fwd"] - cpu["fwd"]).abs().max())
-        / float(cpu["fwd"].abs().max()),
-        "loss_rel_err": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
-        "chain_err": float((card["chain"] - cpu["chain"]).abs().max())
-        / (1.0 + float(cpu["chain"].abs().max())),
-    }
-    emit("small_agreement", run="jigsaw", forward_tol=1e-4, loss_rtol=1e-4, chain_tol=1e-3,
-         **res)
-    if not (res["pixels_differing"] == 0 and res["forward_err"] < 1e-4
-            and res["loss_rel_err"] < 1e-4 and res["chain_err"] < 1e-3):
-        raise AssertionError(f"jigsaw: card and CPU disagree: {res}")
 
 
 def jigsaw_determinism() -> dict:
@@ -1977,13 +1326,11 @@ def jigsaw_determinism() -> dict:
     return out
 
 
-def phase_jigsaw(tmp: str) -> dict:
+def phase_jigsaw(tmp: str) -> None:
     """experiments/jigsaw.py at full width: timed eager steps (ms, TFLOP/s
     against ``coordconv_flops``, peak memory), a run whose loss must fall,
-    2N steps against N + save + restore + N to the bit, cuDNN determinism
-    and its cost, then ``--test`` (the 1000-step chain over 64 samples) on
-    the falling run's checkpoint; returns each kernel's launches."""
-    obs.reset()
+    cuDNN determinism and its cost, then ``--test`` (the 1000-step chain
+    over 64 samples) on the falling run's checkpoint."""
     base = ["--batch", str(JIGSAW["batch"]), "--size", str(JIGSAW["size"]), "--timesteps",
             str(JIGSAW["timesteps"])]
     steps = JIGSAW["warmup"] + JIGSAW["timed"]
@@ -2002,59 +1349,26 @@ def phase_jigsaw(tmp: str) -> dict:
     if state.step != steps or not np.isfinite(rows[-1]["loss"]):
         raise AssertionError(f"jigsaw: step {state.step}, rows {rows}")
 
-    ckpt, log = os.path.join(tmp, "jigsaw_fall"), os.path.join(tmp, "jigsaw_fall.jsonl")
-    n = JIGSAW["fall_steps"]
-    run_captured(jigsaw.main, base + ["--steps", str(n), "--print-every", "1", "--ckpt", ckpt,
-                                      "--log", log])
-    rows = read_jsonl(log)
-    first = [r["loss"] for r in rows[:10]]
-    last = [r["loss"] for r in rows[-10:]]
-    emit("jigsaw", run="falling_loss", steps=n, losses_first_10=first, losses_last_10=last,
-         loss_first_10=float(np.mean(first)), loss_last_10=float(np.mean(last)),
-         steps_per_sec=rows[-1]["steps_per_sec"])
-    if len(rows) != n or not all(np.isfinite(r["loss"]) for r in rows) \
-            or not np.mean(last) < np.mean(first):
-        raise AssertionError(f"jigsaw: loss did not fall ({first} -> {last})")
-
-    n = JIGSAW["exact_n"]
-    a, b = os.path.join(tmp, "jigsaw_2n"), os.path.join(tmp, "jigsaw_nn")
-    quiet = base + ["--print-every", str(10 * n)]
-    run_captured(jigsaw.main, quiet + ["--steps", str(2 * n), "--ckpt", a])
-    run_captured(jigsaw.main, quiet + ["--steps", str(n), "--ckpt", b])
-    run_captured(jigsaw.main, quiet + ["--steps", str(2 * n), "--ckpt", b, "--resume"])
-    ra, rb = (torch.load(os.path.join(d, f"step_{2 * n:08d}.pt"), weights_only=True)
-              for d in (a, b))
-    diffs = [float((v - rb["params"][k]).abs().max()) for k, v in ra["params"].items()]
-    diffs += [float((v - rb["opt_state"][m][k]).abs().max())
-              for m in ("mu", "nu") for k, v in ra["opt_state"][m].items()]
-    same_gen = torch.equal(ra["generator_state"], rb["generator_state"])
-    emit("jigsaw", run="exact_resume", n=n, max_diff=max(diffs), same_generator=same_gen)
-    if max(diffs) != 0.0 or not same_gen:
-        raise AssertionError(f"jigsaw: N + save + restore + N differs from 2N by {max(diffs)}")
+    _, ckpt, _ = falling_run("jigsaw", jigsaw.main, base, tmp, JIGSAW["fall_steps"])
     det = jigsaw_determinism()
     emit("jigsaw", run="cudnn_determinism", steps=JIGSAW["det_steps"], **det)
     if not det["deterministic_same_bits"]:
         raise AssertionError(f"jigsaw: deterministic cuDNN steps differ run to run: {det}")
 
-    rec, text = run_captured(jigsaw.main, base + [
-        "--test", "--eval-batch", str(JIGSAW["eval_batch"]), "--ckpt", ckpt,
-        "--out-dir", os.path.join(tmp, "jigsaw_out")])
+    rec, _ = evaluate(jigsaw.main, base + ["--test", "--eval-batch", str(JIGSAW["eval_batch"]), "--ckpt", ckpt,
+                                           "--out-dir", os.path.join(tmp, "jigsaw_out")])
     emit("jigsaw", run="test", seconds=rec["sample_seconds"], model_evals=rec["model_evals"],
          count=rec["count"], finite=rec["finite"], px=rec["px"], diverged=rec["diverged"],
          trained_steps=JIGSAW["fall_steps"])
-    if "untrained" in text or not rec["finite"] or rec["count"] != JIGSAW["eval_batch"] \
-            or rec["model_evals"] != JIGSAW["timesteps"]:
+    if not rec["finite"] or rec["count"] != JIGSAW["eval_batch"] or rec["model_evals"] != JIGSAW["timesteps"]:
         raise AssertionError(f"jigsaw --test: {rec['px']}")
-    return kernel_launches()
 
 
-def phase_diagnostics(tmp: str) -> dict:
+def phase_diagnostics(tmp: str) -> None:
     """The compute-side diagnostics on the card: ``se3-path`` at its defaults
     (finite shifts, every pose on SO(3)), ``grad_check`` at its defaults (its
-    loss must halve), and ``IGSO3xR3.log_prob`` over 50,000 poses against
-    the CPU's inside kernel 1's gates; no figure.  Returns each kernel's
-    launches."""
-    obs.reset()
+    loss must halve), and ``IGSO3xR3.log_prob`` over 50,000 poses (kernel 1,
+    one launch for the pose and one for its rotation alone); no figure."""
     t0 = time.perf_counter()
     rots, shifts = diagnostics.main(["se3-path", "--out-dir", tmp])
     seconds = time.perf_counter() - t0
@@ -2084,82 +1398,11 @@ def phase_diagnostics(tmp: str) -> dict:
     dist = IGSO3xR3.create(eps, mean=mean, shift_scale=75.0, device="cuda")
     value = dist.sample(gen)
     launches0 = obs.counter("ops.igso3.launches")
-    lp = dist.log_prob(value)
-    rot_lp = dist.igso3.log_prob(value.rot)
-    sync()
+    finite = bool(torch.isfinite(dist.log_prob(value)).all() and torch.isfinite(dist.igso3.log_prob(value.rot)).all())
     launched = obs.counter("ops.igso3.launches") - launches0
-    cpu = IGSO3xR3.create(eps.cpu(), mean=AffineT(mean.rot.cpu(), mean.shift.cpu()),
-                          shift_scale=75.0, device="cpu")
-    value_cpu = AffineT(value.rot.cpu(), value.shift.cpu())
-    lp_err, lp_gate = gate(lp.cpu(), cpu.log_prob(value_cpu), *LOGF_TOL)
-    rot_err, rot_gate = gate(rot_lp.cpu(), cpu.igso3.log_prob(value_cpu.rot), *LOGF_TOL)
-    emit("diagnostics", run="igso3xr3_log_prob", n=m, launches=launched, max_abs_err=lp_err,
-         gate_ratio=lp_gate, rot_max_abs_err=rot_err, rot_gate_ratio=rot_gate,
-         finite=bool(torch.isfinite(lp).all()))
-    if launched != 2 or not (lp_gate <= 1.0 and rot_gate <= 1.0) or not torch.isfinite(lp).all():
-        raise AssertionError(f"IGSO3xR3.log_prob: launches {launched}, gates {lp_gate} {rot_gate}")
-    return kernel_launches()
-
-
-def moe_routes(model: PlaneNet) -> list:
-    """Wrap each MoE layer's router so that every call appends its
-    (probs, expert) to the returned list."""
-    seen = []
-    for layer in model.encoder.layers:
-        route = layer.moe.route
-
-        def recorded(tokens, *args, route=route, **kwargs):
-            out = route(tokens, *args, **kwargs)
-            seen.append((out[0].detach().float().cpu(), out[2].cpu()))
-            return out
-
-        layer.moe.route = recorded
-    return seen
-
-
-def small_moe_agreement() -> None:
-    """The MoE PlaneNet on the card against the CPU: dim 64, 4 heads, 2
-    layers with 4 experts, B 4 x N 32 (T = 128 tokens a layer, C = 40),
-    the same init, inputs, t and noise.  Forward within 1e-5 of its scale,
-    the aircraft loss with the aux within rtol 1e-4, both dispatches, and
-    the same expert for every token; tokens whose two top probabilities
-    lie within 1e-6 of each other are counted, not gated."""
-    rng = np.random.default_rng(21)
-    x = torch.from_numpy(rng.standard_normal((4, 32, 3)).astype(np.float32))
-    t = torch.from_numpy(rng.integers(0, 100, 4))
-    torch.manual_seed(21)
-    init = PlaneNet(dim=64, heads=4, layers=2, moe_experts=4).state_dict()
-    proc_cpu = ProjectedSO3Diffusion(100, device="cpu")
-    noise = proc_cpu.sample_noise(torch.Generator().manual_seed(22), t)
-    out = {}
-    for dispatch in ("scatter", "onehot"):
-        res = {}
-        for dev in ("cpu", "cuda"):
-            model = PlaneNet(dim=64, heads=4, layers=2, moe_experts=4, moe_dispatch=dispatch)
-            model.load_state_dict(init)
-            model = model.to(dev)
-            routes = moe_routes(model)
-            proc = proc_cpu if dev == "cpu" else ProjectedSO3Diffusion(100, device=dev)
-            with torch.no_grad():
-                fwd = model(x.to(dev), t.to(dev)).cpu()
-                loss = aircraft.make_loss_fn(model, proc)(
-                    None, (x.to(dev), t.to(dev), noise.to(dev)))
-            res[dev] = (fwd, float(loss), routes[: len(model.encoder.layers)])
-        fwd_err = float((res["cpu"][0] - res["cuda"][0]).abs().max())
-        scale = float(res["cpu"][0].abs().max())
-        loss_rel = abs(res["cpu"][1] - res["cuda"][1]) / abs(res["cpu"][1])
-        differ, near_ties = 0, 0
-        for (probs, e_cpu), (_, e_cuda) in zip(res["cpu"][2], res["cuda"][2]):
-            top2 = probs.topk(2, dim=-1).values
-            tie = (top2[:, 0] - top2[:, 1]) < 1e-6
-            near_ties += int(tie.sum())
-            differ += int(((e_cpu != e_cuda) & ~tie).sum())
-        out[dispatch] = {"forward_err": fwd_err, "forward_scale": scale, "loss_cpu": res["cpu"][1],
-                         "loss_cuda": res["cuda"][1], "loss_rel_err": loss_rel,
-                         "routing_differs": differ, "near_ties": near_ties}
-        if not (fwd_err <= 1e-5 * scale and loss_rel < 1e-4 and differ == 0):
-            raise AssertionError(f"MoE {dispatch}: card and CPU disagree: {out[dispatch]}")
-    emit("small_agreement", run="moe", forward_tol=1e-5, loss_rtol=1e-4, **out)
+    emit("diagnostics", run="igso3xr3_log_prob", n=m, launches=launched, finite=finite)
+    if launched != 2 or not finite:
+        raise AssertionError(f"IGSO3xR3.log_prob: {launched} launches, finite {finite}")
 
 
 def moe_eval_loss(model) -> float:
@@ -2181,7 +1424,7 @@ def moe_eval_loss(model) -> float:
     return total * PATH["batch"] / len(clouds)
 
 
-def phase_moe_aircraft(tmp: str) -> dict:
+def phase_moe_aircraft(tmp: str) -> None:
     """The Switch-MoE aircraft arm at full width through ``aircraft.main``
     (bench.py's moe_train_e4: PlaneNet d512 / h4 / l4 with 4 experts,
     scatter dispatch, batch 32 x 256 points, T = 8,192 tokens a layer,
@@ -2189,12 +1432,8 @@ def phase_moe_aircraft(tmp: str) -> dict:
     (ms, steps/s, peak memory, the loss on a fixed evaluation set falling
     from the init, expert fractions, the aux on the trained weights), the
     one-hot dispatch timed beside the scatter one, replayed and resumed
-    steps against eager ones to the bit, then ``--test`` over 32 shapes;
-    returns each kernel's launches."""
-    obs.reset()
-    base = ["--so3", "--dim", str(PATH["dim"]), "--heads", str(PATH["heads"]), "--layers",
-            str(PATH["layers"]), "--batch", str(PATH["batch"]), "--samples", str(PATH["samples"]),
-            "--timesteps", str(PATH["timesteps"]), "--moe-experts", str(MOE["experts"])]
+    steps against eager ones to the bit, then ``--test`` over 32 shapes."""
+    base = ["--so3", "--moe-experts", str(MOE["experts"])] + AIRCRAFT_ARGV
     arm = base + ["--bf16", "--steps-per-call", "8"]
     init, _ = aircraft.build(aircraft.parse_args(arm), torch.device("cuda"))
     loss_init = moe_eval_loss(init)
@@ -2248,48 +1487,19 @@ def phase_moe_aircraft(tmp: str) -> dict:
          scatter_peak_bytes=[b for _, b in timing["scatter"]],
          onehot_peak_bytes=[b for _, b in timing["onehot"]])
 
-    diffs = exact_resume_check(tmp, ["--so3", "--bf16", "--moe-experts", str(MOE["experts"])])
-    emit("moe_aircraft", run="exact_resume", n=TRAIN["exact_n"], max_abs_diff=diffs,
-         bit_identical=all(d == 0.0 for d in diffs.values()))
-    if any(d != 0.0 for d in diffs.values()):
-        raise AssertionError(f"moe_aircraft: weights differ from 2N eager steps: {diffs}")
-
-    sampled = []
-    sample_rotations, per_shape = aircraft.sample_rotations, aircraft.SAMPLES_PER_SHAPE
-
-    def recorded(*a, **kw):
-        rots = sample_rotations(*a, **kw)
-        sampled.append(rots)
-        return rots
-
-    aircraft.sample_rotations, aircraft.SAMPLES_PER_SHAPE = recorded, 1
-    try:
-        t0 = time.perf_counter()
-        res, out = run_captured(aircraft.main, base + [
-            "--bf16", "--test", "--max-shapes", str(PATH["batch"]), "--ckpt", ckpt])
-        sync()
-        seconds = time.perf_counter() - t0
-    finally:
-        aircraft.sample_rotations, aircraft.SAMPLES_PER_SHAPE = sample_rotations, per_shape
-    errs = check_rotations("moe_aircraft_test", sampled[0])
-    emit("moe_aircraft", run="test_on_checkpoint", seconds=seconds, samples=len(res),
-         steps=PATH["timesteps"], median_angle=float(np.median(res)), **errs)
-    if "no checkpoint found" in out or res.shape != (PATH["batch"],) \
-            or not np.isfinite(res).all():
-        raise AssertionError("moe_aircraft: --test did not evaluate the checkpoint")
-    return kernel_launches()
+    exact_resume_check(tmp, ["--so3", "--bf16", "--moe-experts", str(MOE["experts"])])
+    aircraft_test("moe_aircraft", base + ["--bf16", "--ckpt", ckpt], PATH["batch"])
 
 
-def phase_dsv2_aircraft(tmp: str) -> dict:
+def phase_dsv2_aircraft(tmp: str) -> None:
     """PlaneNet with the DeepSeek-V2 trunk at the dsv2lite-aircraft-train
     cell's size (DSV2: 1 dense + 4 MoE layers at DeepSeek-V2-Lite's widths,
     8 of 64 experts held, 64 clouds x 256 points, bf16, fused Adam at lr
     3e-4) through ``aircraft.main``: DSV2["steps"] replayed K = 8 steps (ms,
     peak memory, finite losses, the expert fractions), then one call of a
     fresh K = 8 step under the profiler: Adam's kernel once a step, the
-    device kernels a step and the held experts' rows from the device
-    counters; returns each kernel's launches."""
-    obs.reset()
+    row-pass kernels six a MoE layer a step, the device kernels a step and
+    the held experts' rows from the device counters."""
     arm = ["--so3", "--trunk", DSV2["trunk"], "--bf16", "--batch", str(DSV2["batch"]), "--samples",
            str(DSV2["samples"]), "--timesteps", "1000", "--opt-impl", "fused", "--lr", "3e-4",
            "--steps-per-call", "8"]
@@ -2302,11 +1512,10 @@ def phase_dsv2_aircraft(tmp: str) -> dict:
     seconds = time.perf_counter() - t0
     rows = read_jsonl(log)
     params = sum(p.numel() for p in state.model.parameters())
-    launches = kernel_launches()
     emit("dsv2_aircraft", variant="bf16_k8", steps=DSV2["steps"], params=params,
          ms_per_step=1e3 / rows[-1]["steps_per_sec"], peak_memory_bytes=torch.cuda.max_memory_allocated(),
          losses=[r["loss"] for r in rows], test_loss=rows[-1]["test_loss"],
-         expert_frac_max=rows[-1]["expert_frac_max"], seconds=seconds, launches=launches)
+         expert_frac_max=rows[-1]["expert_frac_max"], seconds=seconds, launches=kernel_launches())
     if params != DSV2["params"] or state.step != DSV2["steps"] \
             or not all(np.isfinite(r["loss"]) for r in rows):
         raise AssertionError(f"dsv2_aircraft: {params} parameters, step {state.step}, rows {rows}")
@@ -2334,7 +1543,8 @@ def phase_dsv2_aircraft(tmp: str) -> dict:
     moe_rows_a_step = sum(any(f"{k}<" in n for k in MOE_ROWS_KERNELS) for n in names) / 8
     trunk = model.encoder.cfg
     rows = after["moe.rows"] - before["moe.rows"]
-    expected = ((trunk.num_hidden_layers - trunk.first_k_dense_replace) * DSV2["batch"] * DSV2["samples"]
+    moe_layers = trunk.num_hidden_layers - trunk.first_k_dense_replace
+    expected = (moe_layers * DSV2["batch"] * DSV2["samples"]
                 * trunk.num_experts_per_tok * trunk.experts_held / trunk.n_routed_experts)
     emit("dsv2_aircraft", run="profiled_call", adam_launches_a_step=adam_a_step,
          moe_rows_kernels_a_step=moe_rows_a_step,
@@ -2345,35 +1555,31 @@ def phase_dsv2_aircraft(tmp: str) -> dict:
          loss=float(m["loss"]))
     if adam_a_step != 1 or not np.isfinite(float(m["loss"])):
         raise AssertionError(f"dsv2_aircraft: adam_update {adam_a_step} a step, loss {float(m['loss'])}")
-    moe_layers = trunk.num_hidden_layers - trunk.first_k_dense_replace
     if moe_rows_a_step != 6 * moe_layers:
         raise AssertionError(f"dsv2_aircraft: {moe_rows_a_step} row-pass kernels a step, "
                              f"not 6 in each of {moe_layers} MoE layers")
-    return launches
 
 
-def phase_dp_world1(tmp: str) -> dict:
+def phase_dp_world1(tmp: str) -> None:
     """The multi-process code on the card at world size 1 over NCCL (a
-    group made in this process): 16 replayed ``--bf16`` K = 8 aircraft
-    steps at full width through ``make_dp_train_step(group=...)`` (the
-    loss drawing the global batch's noise and taking the rank's slice)
-    against the same steps without a group, to the bit, with the
-    all-reduce issued while the step is captured; then
-    ``--fsdp`` (FSDP2 over the group) for DP_WORLD1["fsdp_steps"] eager
-    fp32 steps through ``aircraft.main`` against the plain eager steps,
-    losses within rtol 1e-5 (both with the numpy loader: the native one's
-    two threads hand out batches in the order they finish).  Returns each
-    kernel's launches."""
+    group made in this process; the card's machine has one GPU):
+    DP_WORLD1["steps"] replayed ``--bf16`` K = 8 aircraft steps at full
+    width through ``make_dp_train_step(group=...)``, the loss drawing the
+    global batch's noise and taking the rank's slice, the all-reduce
+    inside the capture: every loss finite (the card test
+    ``test_nccl_world_of_one_replays_its_all_reduce`` holds them to the
+    bits of the steps without a group); then ``--fsdp`` (FSDP2 over the
+    group) for DP_WORLD1["fsdp_steps"] eager fp32 steps through
+    ``aircraft.main`` against the plain eager steps, losses within rtol
+    1e-5 (both with the numpy loader: the native one's two threads hand out
+    batches in the order they finish)."""
     import torch.distributed as dist
 
-    obs.reset()
-    base = ["--so3", "--dim", str(PATH["dim"]), "--heads", str(PATH["heads"]), "--layers",
-            str(PATH["layers"]), "--batch", str(PATH["batch"]), "--samples", str(PATH["samples"]),
-            "--timesteps", str(PATH["timesteps"])]
+    base = ["--so3"] + AIRCRAFT_ARGV
     n = DP_WORLD1["fsdp_steps"]
-    plain_log = os.path.join(tmp, "plain.jsonl")
+    logs = {name: os.path.join(tmp, f"{name}.jsonl") for name in ("plain", "fsdp")}
     aircraft.main(base + ["--steps", str(n), "--print-every", "1", "--no-native", "--ckpt",
-                          os.path.join(tmp, "plain"), "--log", plain_log])
+                          os.path.join(tmp, "plain"), "--log", logs["plain"]])
     device = torch.device("cuda")
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
                             device_id=torch.device("cuda", 0))
@@ -2382,62 +1588,37 @@ def phase_dp_world1(tmp: str) -> dict:
         loader = iter(BatchLoader(synthetic_planes(128, seed=0), PATH["batch"],
                                   samples=PATH["samples"], seed=0, device=device))
         batches = torch.stack([next(loader) for _ in range(DP_WORLD1["steps"])])
-        captured = []
-        all_reduce = dist.all_reduce
-
-        def recorded(*a, **kw):
-            captured.append(torch.cuda.is_current_stream_capturing())
-            return all_reduce(*a, **kw)
-
-        finals = {}
-        for name, group in (("plain", None), ("all_reduce", dist.group.WORLD)):
-            model, process = aircraft.build(args, device)
-            opt = make_optimizer(model.named_parameters(), args.lr)
-            state = TrainState(model, opt, torch.Generator(device=device).manual_seed(5))
-            dist.all_reduce = recorded
-            try:
-                loss_fn = (aircraft.make_loss_fn(model, process) if group is None
-                           else aircraft.make_global_loss_fn(model, process, group))
-                step = make_dp_train_step(loss_fn, model, opt, steps_per_call=8, group=group)
-                losses = []
-                for i in range(0, DP_WORLD1["steps"], 8):
-                    state, m = step(state, batches[i:i + 8])
-                    losses.append(float(m["loss"]))
-            finally:
-                dist.all_reduce = all_reduce
-            finals[name] = ({k: v.clone() for k, v in model.state_dict().items()}, losses)
-        a, b = finals["plain"][0], finals["all_reduce"][0]
-        diff = max(float((a[k] - b[k]).abs().max()) for k in a)
-        emit("dp_world1", run="replayed_all_reduce", steps=DP_WORLD1["steps"], k=8,
-             backend=dist.get_backend(), world_size=dist.get_world_size(),
-             max_abs_diff=diff, bit_identical=diff == 0.0, losses=finals["all_reduce"][1],
-             all_reduce_calls=len(captured), all_reduce_calls_while_capturing=sum(captured))
-        if diff != 0.0 or sum(captured) != 1 or finals["plain"][1] != finals["all_reduce"][1]:
-            raise AssertionError(f"dp_world1: replayed all-reduce step differs ({diff}) or the "
-                                 f"capture held no all-reduce ({captured})")
-
-        fsdp_log = os.path.join(tmp, "fsdp.jsonl")
+        model, process = aircraft.build(args, device)
+        opt = make_optimizer(model.named_parameters(), args.lr)
+        state = TrainState(model, opt, torch.Generator(device=device).manual_seed(5))
+        step = make_dp_train_step(aircraft.make_global_loss_fn(model, process, dist.group.WORLD), model, opt,
+                                  steps_per_call=8, group=dist.group.WORLD)
+        losses = []
+        for i in range(0, DP_WORLD1["steps"], 8):
+            state, m = step(state, batches[i:i + 8])
+            losses.append(float(m["loss"]))
+        emit("dp_world1", run="replayed_all_reduce", steps=DP_WORLD1["steps"], k=8, backend=dist.get_backend(),
+             world_size=dist.get_world_size(), losses=losses, captures=obs.counter("train.captures"))
+        if state.step != DP_WORLD1["steps"] or not all(np.isfinite(losses)):
+            raise AssertionError(f"dp_world1: replayed all-reduce steps reached step {state.step}, "
+                                 f"losses {losses}")
+        del state, step, model, opt
         aircraft.main(base + ["--fsdp", "--steps", str(n), "--print-every", "1", "--no-native",
-                              "--ckpt", os.path.join(tmp, "fsdp"), "--log", fsdp_log])
-        plain = [r["loss"] for r in read_jsonl(plain_log)]
-        fsdp = [r["loss"] for r in read_jsonl(fsdp_log)]
-        rel = max(abs(p - f) / abs(p) for p, f in zip(plain, fsdp))
-        emit("dp_world1", run="fsdp", steps=n, loss_plain=plain, loss_fsdp=fsdp,
-             max_rel_err=rel, rtol=1e-5)
-        if len(fsdp) != n or not rel < 1e-5:
-            raise AssertionError(f"dp_world1: --fsdp losses part from the plain ones by {rel}")
+                              "--ckpt", os.path.join(tmp, "fsdp"), "--log", logs["fsdp"]])
     finally:
         dist.destroy_process_group()
-    return kernel_launches()
+    plain, fsdp = ([r["loss"] for r in read_jsonl(logs[name])] for name in ("plain", "fsdp"))
+    rel = max(abs(p - f) / abs(p) for p, f in zip(plain, fsdp))
+    emit("dp_world1", run="fsdp", steps=n, loss_plain=plain, loss_fsdp=fsdp, max_rel_err=rel, rtol=1e-5)
+    if len(fsdp) != n or not rel < 1e-5:
+        raise AssertionError(f"dp_world1: --fsdp losses part from the plain ones by {rel}")
 
 
-def phase_bench() -> dict:
+def phase_bench(tmp: str) -> None:
     """``bench.main(["--quick"])`` in this process (the JSON line it prints
     is passed on): the headline and its eleven rows finite and > 0, the
     MMD kernel launched 12 times (by mmd_eval, the only row that runs it),
-    the headline's FlopCounterMode count beside 3x the closed-form forward.
-    Returns each kernel's launches."""
-    obs.reset()
+    the headline's FlopCounterMode count beside 3x the closed-form forward."""
     result = bench.main(["--quick"])
     launches = kernel_launches()
     rows = result["rows"]
@@ -2457,7 +1638,6 @@ def phase_bench() -> dict:
     if launches["gaussian_kernel_sum"] != BENCH_MMD_LAUNCHES:
         raise AssertionError(f"bench: mmd_eval launched gaussian_kernel_sum "
                              f"{launches['gaussian_kernel_sum']} times")
-    return launches
 
 
 def tree_hash(path: str) -> str:
@@ -2473,13 +1653,12 @@ def tree_hash(path: str) -> str:
     return h.hexdigest()
 
 
-def phase_sweep(tmp: str) -> dict:
+def phase_sweep(tmp: str) -> None:
     """``sweep.main``: the lock driver (``--param so3``) over a two-point lr
     grid, one subprocess a point on the card, into a temporary ``--out``;
     both runs exit 0, ``summary.json`` ranks both by their mean loss, and
     the committed ``sweeps/`` is untouched.  The runs' launches happen in
-    their own processes; this process's counts are returned."""
-    obs.reset()
+    their own processes."""
     before = tree_hash("sweeps")
     out = os.path.join(tmp, "sweep")
     t0 = time.perf_counter()
@@ -2499,21 +1678,18 @@ def phase_sweep(tmp: str) -> dict:
         raise AssertionError(f"sweep: summary {on_disk}")
     if tree_hash("sweeps") != before:
         raise AssertionError("sweep: the committed sweeps/ changed")
-    return kernel_launches()
 
 
-def phase_probe(tmp: str) -> dict:
+def phase_probe(tmp: str) -> None:
     """``probe_protein`` at the headline width on a checkpoint written here
     (one replayed K = 8 call of the production flags through
     ``protein.main``): the checkpoint's step restored, all 20 MSEs finite,
     the zero predictor's shift MSE (a mean of squared unit normals) within
-    0.7-1.3.  Returns each kernel's launches."""
-    obs.reset()
+    0.7-1.3."""
     ckpt = os.path.join(tmp, "probe_ckpt")
     n = PROBE["train_steps"]
-    run_captured(protein.main, PROTEIN_ARGV + [
-        "--opt-impl", "fused", "--opt-state-dtype", "bf16", "--steps-per-call", "8",
-        "--steps", str(n), "--print-every", str(n), "--ckpt", ckpt])
+    run_captured(protein.main, PROTEIN_ARGV + PRODUCTION + ["--steps", str(n), "--print-every", str(n),
+                                                            "--ckpt", ckpt])
     t0 = time.perf_counter()
     table, out = run_captured(probe_protein.main, [
         "--ckpt", ckpt, "--frame-pool", "--cross-depth", str(PROTEIN["cross_depth"]),
@@ -2525,7 +1701,31 @@ def phase_probe(tmp: str) -> dict:
         raise AssertionError(f"probe: step line missing or MSEs not finite: {table}")
     if not ((table[:, 3] > 0.7) & (table[:, 3] < 1.3)).all():
         raise AssertionError(f"probe: zero-predictor shift MSEs {table[:, 3]}")
-    return kernel_launches()
+
+
+# the paths, in the order they run: (name, run(tmp), the kernels it must
+# launch); each runs in a temporary directory of its own, its launches
+# counted from 0
+PATHS = [
+    ("aircraft", phase_path, ("igso3_logpdf_score",)),
+    ("bingham", phase_bingham_path, ("igso3_logpdf_score", "gaussian_kernel_sum")),
+    ("aircraft_train", phase_aircraft_train, ("igso3_logpdf_score", "adam_update")),
+    ("bingham_train", phase_bingham_train, ("gaussian_kernel_sum", "adam_update")),
+    ("protein", phase_protein_path, ("igso3_logpdf_score",)),
+    ("protein_train", phase_protein_train, ("adam_update",)),
+    ("euler_aircraft", phase_euler_aircraft, ("adam_update",)),
+    ("euler_protein", phase_euler_protein, ("adam_update",)),
+    ("so3_toy", phase_so3_toy, ("adam_update",)),
+    ("lock", phase_lock, ("adam_update",)),
+    ("jigsaw", phase_jigsaw, ("adam_update",)),
+    ("diagnostics", phase_diagnostics, ("igso3_logpdf_score",)),
+    ("moe_aircraft", phase_moe_aircraft, ("adam_update",)),
+    ("dsv2_aircraft", phase_dsv2_aircraft, ("adam_update", "moe_rows")),
+    ("dp_world1", phase_dp_world1, ("adam_update",)),
+    ("bench", phase_bench, ("adam_update", "gaussian_kernel_sum")),
+    ("sweep", phase_sweep, ()),
+    ("probe", phase_probe, ("adam_update",)),
+]
 
 
 def timed(name: str, fn):
@@ -2538,133 +1738,24 @@ def timed(name: str, fn):
 def main() -> None:
     smi = timed("device", phase_device)
     sass = sass_counts(timed("build", phase_build))
-    check = timed("kernel_check_igso3", phase_kernel_check)
-    mmd_check = timed("kernel_check_mmd", phase_mmd_check)
-    adam = timed("kernel_check_adam", phase_adam_check)
-    moe_rows = timed("kernel_check_moe_rows", phase_moe_rows_check)
-    timed("small_agreement_aircraft", small_cpu_agreement)
-    timed("small_agreement_bingham", small_bingham_agreement)
-    timed("small_agreement_train", small_train_agreement)
-    aircraft_launches, fwd_ms = timed("aircraft_path", phase_path)
-    bing = timed("bingham_path", phase_bingham_path)
-    for name in ("igso3_logpdf_score", "gaussian_kernel_sum"):
-        if bing[name] == 0:
-            raise AssertionError(f"the Bingham path launched no {name} kernel")
-    air_train = timed("aircraft_train", lambda: phase_aircraft_train(fwd_ms))
-    bing_train = timed("bingham_train", phase_bingham_train)
-    if air_train["igso3_logpdf_score"] == 0 or bing_train["gaussian_kernel_sum"] == 0:
-        raise AssertionError(f"the training paths' launches: {air_train}, {bing_train}")
-    timed("small_agreement_protein", small_protein_agreement)
-    with tempfile.TemporaryDirectory() as tmp:
-        prot = timed("protein_path", lambda: phase_protein_path(tmp))
-        prot_train = timed("protein_train", lambda: phase_protein_train(tmp))
-    timed("small_agreement_euler", small_euler_agreement)
-    with tempfile.TemporaryDirectory() as tmp:
-        euler_air = timed("euler_aircraft", lambda: phase_euler_aircraft(tmp))
-        euler_prot = timed("euler_protein", lambda: phase_euler_protein(tmp))
-        toy = timed("so3_toy", lambda: phase_so3_toy(tmp))
-        lock_suite = timed("lock", lambda: phase_lock(tmp))
-    timed("small_agreement_jigsaw", small_jigsaw_agreement)
-    with tempfile.TemporaryDirectory() as tmp:
-        jig = timed("jigsaw", lambda: phase_jigsaw(tmp))
-        diag = timed("diagnostics", lambda: phase_diagnostics(tmp))
-    if diag["igso3_logpdf_score"] == 0:
-        raise AssertionError(f"the diagnostics path launched no igso3_logpdf_score: {diag}")
-    timed("small_agreement_moe", small_moe_agreement)
-    with tempfile.TemporaryDirectory() as tmp:
-        moe = timed("moe_aircraft", lambda: phase_moe_aircraft(tmp))
-        dsv2 = timed("dsv2_aircraft", lambda: phase_dsv2_aircraft(tmp))
-        dp1 = timed("dp_world1", lambda: phase_dp_world1(tmp))
-    bench_launches = timed("bench", phase_bench)
-    with tempfile.TemporaryDirectory() as tmp:
-        timed("sweep", lambda: phase_sweep(tmp))
-        probe = timed("probe", lambda: phase_probe(tmp))
-    by_path = {"aircraft": aircraft_launches, "bingham": bing,
-               "aircraft_train": air_train, "bingham_train": bing_train,
-               "protein": prot, "protein_train": prot_train, "euler_aircraft": euler_air,
-               "euler_protein": euler_prot, "so3_toy": toy, "lock": lock_suite,
-               "jigsaw": jig, "diagnostics": diag, "moe_aircraft": moe, "dsv2_aircraft": dsv2,
-               "dp_world1": dp1,
-               "bench": bench_launches, "probe": probe}
-    launches = {k: sum(p[k] for p in by_path.values()) for k in aircraft_launches}
-    main_n = PATH["batch"]
-    tm, big = check["timing"][main_n], check["timing"][2**20]
-    mid = check["timing"][BINGHAM_N]
-    lp = check["timing"][f"{PATH['log_prob_n']} one sigma"]
-    prot_n = check["timing"][PROTEIN["batch"]]
-    big1 = check["timing"][f"{2**20} one sigma"]
-    mt = mmd_check["timing"]
-    kernels = [{
-        "name": "igso3_logpdf_score",
-        "route": "cuda",
-        "source": "diffusion_extensions_tpu_torch/csrc/igso3_logpdf_score.cu",
-        "replaces": "diffusion_extensions_tpu/ops/igso3_pallas.py:101",
-        "launches": launches["igso3_logpdf_score"],
-        "launches_by_path": {p: n["igso3_logpdf_score"] for p, n in by_path.items()},
-        "max_abs_err": max(check["worst"]["logf_abs"], check["worst"]["score_abs"]),
-        "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-        "bound_by": tm["bound_by"], "library_ms": None, "n": main_n,
-        "call_ms": tm["call_ms"], "plain_call_ms": tm["plain_call_ms"],
-        "ms_1m": big["ms"], "plain_ms_1m": big["plain_ms"], "bound_ms_1m": big["bound_ms"],
-        "call_ms_1m": big["call_ms"],
-        "ms_20k": mid["ms"], "plain_ms_20k": mid["plain_ms"], "bound_ms_20k": mid["bound_ms"],
-        "call_ms_20k": mid["call_ms"],
-        "ms_50k_one_sigma": lp["ms"], "plain_ms_50k_one_sigma": lp["plain_ms"],
-        "bound_ms_50k_one_sigma": lp["bound_ms"], "call_ms_50k_one_sigma": lp["call_ms"],
-        "ms_1m_one_sigma": big1["ms"], "bound_ms_1m_one_sigma": big1["bound_ms"],
-        "ms_16": prot_n["ms"], "plain_ms_16": prot_n["plain_ms"],
-        "bound_ms_16": prot_n["bound_ms"], "call_ms_16": prot_n["call_ms"],
-        "sass_instructions": sass["igso3_logpdf_score"],
-        "logf_max_abs_err": check["worst"]["logf_abs"],
-        "score_max_abs_err": check["worst"]["score_abs"],
-        "gate_ratio": max(check["worst"]["logf_gate"], check["worst"]["score_gate"]),
-        "pass": check["pass"],
-    }, {
-        "name": "gaussian_kernel_sum",
-        "route": "cuda",
-        "source": "diffusion_extensions_tpu_torch/csrc/gaussian_kernel_sum.cu",
-        "replaces": "diffusion_extensions_tpu/ops/mmd_pallas.py:112",
-        "launches": launches["gaussian_kernel_sum"],
-        "launches_by_path": {p: n["gaussian_kernel_sum"] for p, n in by_path.items()},
-        "max_abs_err": mmd_check["max_abs_err"],
-        "ms": mt["ms"], "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"],
-        "bound_by": mt["bound_by"], "library_ms": None, "n": mt["n"], "m": mt["m"],
-        "max_rel_err": mmd_check["max_rel_err"], "pass": True,
-        "sass_per_pair": sass["gaussian_kernel_sum"],
-    }, {
-        "name": "adam_update",
-        "route": "cuda",
-        "source": "diffusion_extensions_tpu_torch/csrc/adam_update.cu",
-        "replaces": None,
-        "launches": launches["adam_update"],
-        "launches_by_path": {p: n["adam_update"] for p, n in by_path.items()},
-        "max_abs_err": 0.0, "pass": True,
-        **{f"{k}_{name}": v for name, row in adam.items() for k, v in row.items()
-           if k in ("ms", "plain_ms", "library_ms", "bound_ms", "call_ms", "roofline_pct")},
-        "sass_instructions": sass["adam_update"],
-    }, {
-        "name": "moe_rows",
-        "route": "cuda",
-        "source": "diffusion_extensions_tpu_torch/csrc/moe_rows.cu",
-        "replaces": None,
-        "launches": launches["moe_rows"],
-        "launches_by_path": {p: n["moe_rows"] for p, n in by_path.items()},
-        "pass": True,
-        **{f"{k}_{name}_{case}": v for case, rows in moe_rows.items() for name, row in rows.items()
-           if isinstance(row, dict) for k, v in row.items() if k in ("ms", "plain_ms", "bound_ms", "roofline_pct")},
-        "sass_instructions": sass["moe_rows"],
-    }]
+    measured = timed("kernels", phase_kernels)
+    failed = {name: rec for name, rec in measured.items() if not rec["pass"]}
+    if failed:
+        raise AssertionError(f"kernels outside their gates against the plain versions: {failed}")
+    by_path = {}
+    for name, run, must in PATHS:
+        obs.reset()
+        with tempfile.TemporaryDirectory() as tmp:
+            timed(name, lambda: run(tmp))
+        by_path[name] = kernel_launches()
+        missing = [k for k in must if by_path[name][k] == 0]
+        if missing:
+            raise AssertionError(f"the {name} path launched no {missing}: {by_path[name]}")
+    kernels = [{"name": name, "route": "cuda", "source": f"diffusion_extensions_tpu_torch/csrc/{name}.cu",
+                "replaces": spec["replaces"], "launches": sum(p[name] for p in by_path.values()),
+                "launches_by_path": {p: n[name] for p, n in by_path.items()}, **measured[name],
+                spec["sass"]: sass[name]} for name, spec in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
-    # every path that trains on the card updates through Adam's kernel
-    trains = ("aircraft_train", "bingham_train", "protein_train", "euler_aircraft",
-              "euler_protein", "so3_toy", "lock", "jigsaw", "moe_aircraft", "dsv2_aircraft", "dp_world1",
-              "bench",
-              "probe")
-    missing = [p for p in trains if by_path[p]["adam_update"] == 0]
-    if missing:
-        raise AssertionError(f"paths that trained without launching adam_update: {missing}")
-    if by_path["dsv2_aircraft"]["moe_rows"] == 0:
-        raise AssertionError("the DeepSeek-V2 trunk's path launched no moe_rows kernel")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -238,20 +238,11 @@ class DeepSeekMoE(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, d = x.shape
-        capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
-        if capturing:
-            stream, stamps = torch.cuda.current_stream(), obs.counter("obs.stamps")
-            nodes = obs.graph_kernels(stream)
-        with obs.span(self.span, flush=True):
+        with obs.capture_count("moe"), obs.span(self.span, flush=True):
             tokens = x.reshape(b * n, d)
             probs, top_w, top_i = self.route(tokens)
             self.aux_loss = self.balance_loss(probs, top_i, b)
-            out = self.shared_experts(x) + self._held_experts(tokens, top_w, top_i).view(b, n, d)
-        if capturing:
-            obs.count("moe.graph_kernels",
-                      obs.graph_kernels(stream) - nodes - (obs.counter("obs.stamps") - stamps))
-            obs.count("moe.captures")
-        return out
+            return self.shared_experts(x) + self._held_experts(tokens, top_w, top_i).view(b, n, d)
 
 
 class DeepSeekV2Layer(nn.Module):

@@ -36,19 +36,23 @@ outside a capture.
 Spans and counters are the process's; one thread opens spans.
 ``snapshot()`` reads them, ``reset()`` clears them; ``durations_ms``,
 ``gaps_us``, ``host_ns``, ``self_ns`` and ``summary`` read a snapshot.
+
+``capture_count(prefix)`` counts a block's share of a CUDA graph while the
+graph is captured: ``<prefix>.graph_kernels`` (its kernel, copy and fill
+nodes, stamps left out) and ``<prefix>.captures``.
 """
 from __future__ import annotations
 
 import ctypes
 import statistics
 import time
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 
 import torch
 
 __all__ = ["ROWS", "SLOTS", "DEVICE_COUNTERS", "span", "count", "device_count", "counter", "enable",
            "disable", "enabled", "reset", "snapshot", "stamp_ref", "decode", "durations_ms", "gaps_us",
-           "host_ns", "self_ns", "summary", "graph_kernels"]
+           "host_ns", "self_ns", "summary", "graph_kernels", "capture_count"]
 
 ROWS = 16384  # device rows kept (one a step; a 51 s window of aircraft has ~6,400); the ring has one more
 SLOTS = 32  # a start and an end slot for each of 16 device spans
@@ -350,6 +354,8 @@ def graph_kernels(stream: torch.cuda.Stream) -> int:
     if status.value != _CU_STREAM_CAPTURE_STATUS_ACTIVE:
         raise RuntimeError("graph_kernels: the stream is not capturing")
     _cu("cuGraphGetNodes", graph, None, ctypes.byref(n))
+    if n.value == 0:  # an array of no nodes is refused (CUDA_ERROR_INVALID_VALUE)
+        return 0
     nodes = (ctypes.c_void_p * n.value)()
     _cu("cuGraphGetNodes", graph, nodes, ctypes.byref(n))
     kind, kernels = ctypes.c_int(), 0
@@ -357,3 +363,19 @@ def graph_kernels(stream: torch.cuda.Stream) -> int:
         _cu("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
         kernels += kind.value in _CU_GRAPH_NODE_TYPES_RUN
     return kernels
+
+
+@contextmanager
+def capture_count(prefix: str):
+    """Around a block: only while the current stream is being captured,
+    add to ``<prefix>.graph_kernels`` the kernel, copy and fill nodes the
+    block added to the graph, its stamps left out, and one to
+    ``<prefix>.captures``.  Outside a capture it counts nothing."""
+    if not (torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()):
+        yield
+        return
+    stream, stamps = torch.cuda.current_stream(), counter("obs.stamps")
+    nodes = graph_kernels(stream)
+    yield
+    count(f"{prefix}.graph_kernels", graph_kernels(stream) - nodes - (counter("obs.stamps") - stamps))
+    count(f"{prefix}.captures")

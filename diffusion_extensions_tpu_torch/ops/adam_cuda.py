@@ -35,11 +35,13 @@ from .. import obs
 from ._build import CSRC, build_library
 
 __all__ = ["adam_update", "adam_update_ref", "plan_chunks", "chunk_cover", "build",
-           "CHUNK", "MAX_LEAVES"]
+           "CHUNK", "MAX_LEAVES", "GATES"]
 
 SOURCE = CSRC / "adam_update.cu"
 CHUNK = 8192  # elements a block updates: a multiple of 4 (the 16-byte vectors)
 MAX_LEAVES = 640  # kMaxLeaves in the source: the leaf table fits a launch's 32,764 bytes
+# each output's gate against the plain version: None, its bits
+GATES = {"weights": None, "mu": None, "nu": None}
 
 build_log = ""  # nvcc's output of the last build made in this process
 library_path = None  # the built shared library, once build() has run

@@ -32,9 +32,12 @@ from .. import obs
 from ._build import CSRC, build_library
 
 __all__ = ["igso3_logpdf_score", "igso3_logpdf_score_ref", "plan_operands", "alloc_outputs",
-           "cheap_domain", "cheap_path_ref", "kernel_math_ref", "build"]
+           "cheap_domain", "cheap_path_ref", "kernel_math_ref", "build", "GATES"]
 
 SOURCE = CSRC / "igso3_logpdf_score.cu"
+# each output's gate against the plain version (rtol, atol): those of the
+# Pallas kernel's tests (tests/test_pallas.py)
+GATES = {"logf": (1e-5, 1e-5), "score": (1e-4, 5e-4)}
 
 build_log = ""  # nvcc's output of the last build made in this process
 library_path = None  # the built shared library, once build() has run

@@ -50,9 +50,13 @@ __all__ = [
     "split_tf32",
     "mmd_cuda",
     "build",
+    "GATES",
 ]
 
 SOURCE = CSRC / "gaussian_kernel_sum.cu"
+# the sum's gate against the plain version (rtol, atol): that of the Pallas
+# kernel's tests (tests/test_pallas.py)
+GATES = {"sum": (1e-4, 0.0)}
 
 build_log = ""  # nvcc's output of the last build made in this process
 library_path = None  # the built shared library, once build() has run

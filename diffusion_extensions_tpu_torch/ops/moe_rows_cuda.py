@@ -45,11 +45,16 @@ from .. import obs
 from ._build import CSRC, build_library
 
 __all__ = ["gather", "swiglu", "combine", "gather_ref", "swiglu_ref", "combine_ref", "dispatch_plan",
-           "row_sources", "token_rows", "check_operands", "build", "MAX_K", "ROW_DTYPES"]
+           "row_sources", "token_rows", "check_operands", "grad_w_atol", "build", "MAX_K", "ROW_DTYPES",
+           "GATES"]
 
 SOURCE = CSRC / "moe_rows.cu"
 MAX_K = 8  # kMaxK in the source: a token's choices the kernels hold in registers
 ROW_DTYPES = (torch.bfloat16, torch.float32)
+# each output's gate against the plain version: None, its bits (the rows
+# under n and the per-token results); the combine's gradient of the weights
+# within grad_w_atol (rtol 0)
+GATES = {"rows": None}
 _INT32_MAX = 2**31 - 1
 
 build_log = ""  # nvcc's output of the last build made in this process
@@ -140,6 +145,16 @@ def combine_ref(ys, w, inv, offs):
     t, k = w.shape
     back = torch.where(token_rows(inv, offs, k)[1][..., None], ys.index_select(0, inv).view(t, k, -1), 0)
     return torch.sum(back * w[..., None], dim=1)
+
+
+def grad_w_atol(grad_out, ys, inv, mine):
+    """The gate of the combine's gradient of the weights (T, k) against the
+    plain version's: a float32 dot product over d summed in another order
+    than PyTorch's, each order within d 2^-24 sum |g y| of the exact sum,
+    so the two within twice that; 0 where a choice is not held."""
+    t, k = mine.shape
+    rows = ys.float().index_select(0, inv).view(t, k, -1)
+    return torch.where(mine, 2 * ys.shape[-1] * 2.0**-24 * (grad_out[:, None, :] * rows).abs().sum(-1), 0.0)
 
 
 # ---------------------------------------------------------------- index maps

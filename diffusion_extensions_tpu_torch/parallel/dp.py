@@ -122,13 +122,9 @@ class _CapturedStep:
             self.graph = torch.cuda.CUDAGraph()
             self.graph.register_generator_state(generator)
             optimizer.zero_grad()
-            stamps = obs.counter("obs.stamps")
-            with torch.cuda.graph(self.graph, stream=stream):
+            with torch.cuda.graph(self.graph, stream=stream), obs.capture_count("train"):
                 loss, self.grads = body(generator, self.batch)
-                kernels = obs.graph_kernels(stream) - (obs.counter("obs.stamps") - stamps)
             self.loss = loss.detach()  # keeps the value's memory, not the autograd graph
-        obs.count("train.captures")
-        obs.count("train.graph_kernels", kernels)
         obs.count("train.capture_ns", time.perf_counter_ns() - t0)
 
     def fits(self, batch) -> bool:

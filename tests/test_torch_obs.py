@@ -85,6 +85,31 @@ def test_snapshot_is_a_copy_and_reset_clears():
     assert obs.snapshot() == {"host": [], "device": None, "counters": {}}
 
 
+@pytest.mark.parametrize("prefix,metric", [("train", "train.kernels_per_step"),
+                                           ("moe", "moe.kernels_per_layer")])
+def test_capture_count_counts_only_inside_a_capture(monkeypatch, prefix, metric):
+    """Outside a capture the block counts nothing; inside one (faked: the
+    graph's node count read 10 before the block and 25 after it, 3 of
+    them stamps) it adds the 12 nodes and one capture under the names the
+    benchmark's metric reads."""
+    from benchmark.harness import files
+
+    with obs.capture_count(prefix):
+        obs.count("obs.stamps", 3)
+    assert obs.snapshot()["counters"] == {"obs.stamps": 3}
+    assert files.metric(metric).read({"steps": 1}) is None
+    obs.reset()
+    nodes = iter([10, 25])
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: None)
+    monkeypatch.setattr(obs, "graph_kernels", lambda stream: next(nodes))
+    with obs.capture_count(prefix):
+        obs.count("obs.stamps", 3)
+    assert obs.counter(f"{prefix}.graph_kernels") == 12 and obs.counter(f"{prefix}.captures") == 1
+    assert files.metric(metric).read({"steps": 1}) == 12
+
+
 def _plain_ring(writes, rows):
     """The rows a sequence of stamps leaves, kept as Python dicts: row r
     holds {slot: time}; a ring of ``rows`` lines keeps the last rows - 1
