@@ -94,7 +94,8 @@ from diffusion_extensions_tpu_torch.models.coordconv import STAGES, WIDTH
 from diffusion_extensions_tpu_torch.models.planenet import PlaneNet
 from diffusion_extensions_tpu_torch.models.projections import PointCloudProj, ProtProjection
 from diffusion_extensions_tpu_torch.models.protnet import ProtNet
-from diffusion_extensions_tpu_torch.ops import _build, adam_cuda, igso3_cuda, mmd_cuda, moe_rows_cuda
+from diffusion_extensions_tpu_torch.ops import (_build, adam_cuda, igso3_cuda, mla_attention_cuda, mmd_cuda,
+                                                moe_rows_cuda)
 from diffusion_extensions_tpu_torch.ops.igso3 import (
     IGSO3xR3,
     IsotropicGaussianSO3,
@@ -116,6 +117,7 @@ from diffusion_extensions_tpu_torch.train.state import (
 # H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense, on the tensor cores
 # IGSO(3) kernel, per element: two f32 loads + two f32 stores (one load when
 # sigma is a single value), and the plain version's 89 f32 operations, each
 # exp/log/sin/tan/sinh/cosh counted as one: 35 for the wrapped-image terms A
@@ -164,6 +166,11 @@ ADAM_BYTES = {"f32": 28, "bf16": 20}
 MOE_ROWS = dict(t=16_384, k=6, e=64, held=8, d=2048, f=1408, held_bias=-0.105)
 MOE_ROWS_KERNELS = ("moe_gather_rows", "moe_gather_rows_backward", "moe_swiglu_rows",
                     "moe_swiglu_rows_backward", "moe_combine_rows", "moe_combine_rows_backward")
+# MLA's attention core at the dsv2lite-aircraft-train cell's shapes: clouds,
+# points, heads, head dims (qk = nope + rope, rope, v) and the rope slice's
+# offset in kv_a_proj_with_mqa's rows
+MLA = dict(b=64, n=256, h=16, dqk=192, dr=64, dv=128, rank=512)
+MLA_KERNELS = ("mla_attention_forward_kernel", "mla_attention_dq_kernel", "mla_attention_dkv_kernel")
 PROTEIN_ARGV = ["--se3", "--bf16", "--dim", "1024", "--heads", "8", "--t_depth", "12",
                 "--c_depth", "8", "--frame-pool", "--cross-depth", "2", "--rel-frame",
                 "--equiv-head", "--batch", "16", "--timesteps", "1000",
@@ -369,7 +376,8 @@ def sass_counts(sass: dict) -> dict:
     available"."""
     out = {"gaussian_kernel_sum": "not available", "igso3_logpdf_score": "not available",
            "adam_update": sass_instructions(sass["adam_update"]),
-           "moe_rows": sass_instructions(sass["moe_rows"])}
+           "moe_rows": sass_instructions(sass["moe_rows"]),
+           "mla_attention": sass_instructions(sass["mla_attention"])}
     mmd_fns = sass["gaussian_kernel_sum"]
     if isinstance(mmd_fns, dict):
         for name, fn in mmd_fns.items():
@@ -600,6 +608,71 @@ def moe_rows_cases():
         torch.cuda.empty_cache()
 
 
+def mla_attention_bound(c: dict) -> dict:
+    """(bytes, FLOPs) of the forward and of the backward at the shapes ``c``:
+    every input byte read once and every output byte written once (bf16
+    rows, float32 log-sum-exp; the backward's D is its own scratch and not
+    counted), and the products: 2 B H N^2 (qk + v) forward (S, P v), 2 B H
+    N^2 (2 qk + 2 v) backward (dP, dv, dk, dq) without the recomputed S."""
+    b, n, h, dqk, dr, dv = (c[k] for k in ("b", "n", "h", "dqk", "dr", "dv"))
+    rows = b * n
+    q, kv, kpe = rows * h * dqk * 2, rows * h * (dqk - dr + dv) * 2, rows * dr * 2
+    o, lse = rows * h * dv * 2, rows * h * 4
+    pairs = 2 * b * h * n * n
+    return {"forward": (q + kv + kpe + o + lse, pairs * (dqk + dv)),
+            "backward": (2 * (q + kv + kpe) + 2 * o + lse, pairs * 2 * (dqk + dv))}
+
+
+def mla_attention_cases():
+    """Kernel 5 at MLA's shapes: the forward and the backward through the
+    wrapper against the plain version (autograd, the same bf16 inputs), each
+    output within the module's GATES; then the forward's launch and the
+    backward's two, into outputs allocated once: device ms (a CUDA graph
+    replayed) beside the bound (bytes or FLOPs, whichever is the larger
+    time) and the plain version's ms (its forward, or its backward alone
+    through ``torch.autograd.grad``)."""
+    from diffusion_extensions_tpu_torch.models.deepseek_v2 import DEEPSEEK_V2_LITE
+
+    c, m = MLA, mla_attention_cuda
+    b, n, h, dqk, dr, dv = (c[k] for k in ("b", "n", "h", "dqk", "dr", "dv"))
+    scale = DEEPSEEK_V2_LITE.softmax_scale
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = [torch.randn(b, n, w, generator=gen, device="cuda").bfloat16()
+            for w in (h * dqk, h * (dqk - dr + dv), c["rank"] + dr)]
+    grad = torch.randn(b, n, h, dv, generator=gen, device="cuda").bfloat16()
+
+    def views(requires_grad=True):
+        q, kv, kpe = rows[0].view(b, n, h, dqk), rows[1].view(b, n, h, -1), rows[2][..., c["rank"]:]
+        return [x.detach().requires_grad_(requires_grad) for x in (q, kv, kpe)]
+
+    res = {}
+    for kernel in (True, False):
+        ins = views()
+        o = (m.attention if kernel else m.attention_ref)(*ins, scale)
+        dq, dkv, dkpe = torch.autograd.grad(o, ins, grad)
+        res[kernel] = {"forward": {"o": o.detach()}, "backward": {"dq": dq, "dkv": dkv, "dk_pe": dkpe}}
+    q, kv, kpe = views(False)
+    o, lse = torch.empty(b, n, h, dv, device="cuda", dtype=torch.bfloat16), torch.empty(b, h, n, device="cuda")
+    delta = torch.empty_like(lse)
+    dq, dkv, dkpe = (torch.empty(x.shape, device="cuda", dtype=torch.bfloat16) for x in (q, kv, kpe))
+    ins = views()
+    o_p = m.attention_ref(*ins, scale)
+    runs = {"forward": (lambda: m.launch_forward(q, kv, kpe, scale, o, lse),
+                        lambda: m.attention_ref(q, kv, kpe, scale)),
+            "backward": (lambda: m.launch_backward(q, kv, kpe, scale, o, lse, grad, delta, dq, dkv, dkpe),
+                         lambda: torch.autograd.grad(o_p, ins, grad, retain_graph=True))}
+    bound = mla_attention_bound(c)
+    for name, (kernel, plain) in runs.items():
+        with torch.set_grad_enabled(name == "backward"):
+            plain_ms = time_cuda(plain, 10, warmup=2)
+        nbytes, flops = bound[name]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_OPS_PER_S * 1e3
+        ms = time_graph(kernel, reps=20)
+        yield f"_{name}", res[True][name], res[False][name], m.GATES, dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops), bytes=nbytes, flops=flops,
+            bound_by="bytes" if t_bytes >= t_ops else "operations", roofline_pct=100.0 * max(t_bytes, t_ops) / ms)
+
+
 # the kernels: their launch counter, wrapper module (its GATES: each
 # output's gate against the plain version), the Pallas kernel each replaces,
 # the key of its SASS summary and its timed cases, each case yielding (key
@@ -616,6 +689,8 @@ KERNELS = {
                         cases=adam_cases),
     "moe_rows": dict(counter="ops.moe_rows.launches", module=moe_rows_cuda, replaces=None,
                      sass="sass_instructions", cases=moe_rows_cases),
+    "mla_attention": dict(counter="ops.mla_attention.launches", module=mla_attention_cuda, replaces=None,
+                          sass="sass_instructions", cases=mla_attention_cases),
 }
 
 
@@ -1498,8 +1573,9 @@ def phase_dsv2_aircraft(tmp: str) -> None:
     3e-4) through ``aircraft.main``: DSV2["steps"] replayed K = 8 steps (ms,
     peak memory, finite losses, the expert fractions), then one call of a
     fresh K = 8 step under the profiler: Adam's kernel once a step, the
-    row-pass kernels six a MoE layer a step, the device kernels a step and
-    the held experts' rows from the device counters."""
+    row-pass kernels six a MoE layer a step, the attention kernels three a
+    layer a step, the device kernels a step and the held experts' rows from
+    the device counters."""
     arm = ["--so3", "--trunk", DSV2["trunk"], "--bf16", "--batch", str(DSV2["batch"]), "--samples",
            str(DSV2["samples"]), "--timesteps", "1000", "--opt-impl", "fused", "--lr", "3e-4",
            "--steps-per-call", "8"]
@@ -1541,13 +1617,14 @@ def phase_dsv2_aircraft(tmp: str) -> None:
              and not e.name.startswith("dxt::")]
     adam_a_step = sum("adam_update" in n for n in names) / 8
     moe_rows_a_step = sum(any(f"{k}<" in n for k in MOE_ROWS_KERNELS) for n in names) / 8
+    mla_a_step = sum(any(f"{k}<" in n for k in MLA_KERNELS) for n in names) / 8
     trunk = model.encoder.cfg
     rows = after["moe.rows"] - before["moe.rows"]
     moe_layers = trunk.num_hidden_layers - trunk.first_k_dense_replace
     expected = (moe_layers * DSV2["batch"] * DSV2["samples"]
                 * trunk.num_experts_per_tok * trunk.experts_held / trunk.n_routed_experts)
     emit("dsv2_aircraft", run="profiled_call", adam_launches_a_step=adam_a_step,
-         moe_rows_kernels_a_step=moe_rows_a_step,
+         moe_rows_kernels_a_step=moe_rows_a_step, mla_attention_kernels_a_step=mla_a_step,
          device_ops_a_step=len(names) / 8, graph_kernels=after.get("train.graph_kernels"),
          moe_kernels_per_layer=after["moe.graph_kernels"] / after["moe.captures"],
          held_rows_a_step=rows / 8, expected_rows_a_step=expected,
@@ -1558,6 +1635,9 @@ def phase_dsv2_aircraft(tmp: str) -> None:
     if moe_rows_a_step != 6 * moe_layers:
         raise AssertionError(f"dsv2_aircraft: {moe_rows_a_step} row-pass kernels a step, "
                              f"not 6 in each of {moe_layers} MoE layers")
+    if mla_a_step != 3 * trunk.num_hidden_layers:
+        raise AssertionError(f"dsv2_aircraft: {mla_a_step} attention kernels a step, "
+                             f"not 3 in each of {trunk.num_hidden_layers} layers")
 
 
 def phase_dp_world1(tmp: str) -> None:
@@ -1720,7 +1800,7 @@ PATHS = [
     ("jigsaw", phase_jigsaw, ("adam_update",)),
     ("diagnostics", phase_diagnostics, ("igso3_logpdf_score",)),
     ("moe_aircraft", phase_moe_aircraft, ("adam_update",)),
-    ("dsv2_aircraft", phase_dsv2_aircraft, ("adam_update", "moe_rows")),
+    ("dsv2_aircraft", phase_dsv2_aircraft, ("adam_update", "moe_rows", "mla_attention")),
     ("dp_world1", phase_dp_world1, ("adam_update",)),
     ("bench", phase_bench, ("adam_update", "gaussian_kernel_sum")),
     ("sweep", phase_sweep, ()),

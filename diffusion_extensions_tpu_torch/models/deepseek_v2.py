@@ -71,6 +71,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from .. import obs
+from ..ops import mla_attention_cuda as mla_attention
 from ..ops import moe_rows_cuda as moe_rows
 from .layers import _TRUNC_STD, widen
 from .moe import _lecun_normal_stacked
@@ -157,7 +158,11 @@ class SwiGLU(nn.Module):
 
 class MLA(nn.Module):
     """Multi-head latent attention without q-LoRA, over all points (no
-    mask, no rotation); the logits' softmax in float32."""
+    mask, no rotation); the logits' softmax in float32.  The core,
+    softmax(s q k^T) v, is ``ops/mla_attention_cuda.attention`` on the
+    projections' outputs as they lie: on the card hand-written kernels (one
+    launch forward, two backward) that never write the logits, on the CPU
+    the plain chain."""
 
     def __init__(self, cfg: DeepSeekV2Config):
         super().__init__()
@@ -173,15 +178,11 @@ class MLA(nn.Module):
         c = self.cfg
         b, n, _ = x.shape
         h, nope, rope = c.num_attention_heads, c.qk_nope_head_dim, c.qk_rope_head_dim
-        q = self.q_proj(x).view(b, n, h, nope + rope).transpose(1, 2)
+        q = self.q_proj(x).view(b, n, h, nope + rope)
         latent, k_pe = self.kv_a_proj_with_mqa(x).split([c.kv_lora_rank, rope], dim=-1)
-        kv = self.kv_b_proj(self.kv_a_layernorm(latent)).view(b, n, h, nope + c.v_head_dim).transpose(1, 2)
-        k_nope, v = kv.split([nope, c.v_head_dim], dim=-1)
-        k = torch.cat((k_nope, k_pe[:, None].expand(b, h, n, rope).to(k_nope.dtype)), dim=-1)
-        logits = widen(torch.matmul(q, k.transpose(-1, -2))) * c.softmax_scale
-        weights = torch.softmax(logits, dim=-1).to(v.dtype)
-        o = torch.matmul(weights, v).transpose(1, 2).reshape(b, n, h * c.v_head_dim)
-        return self.o_proj(o)
+        kv = self.kv_b_proj(self.kv_a_layernorm(latent)).view(b, n, h, nope + c.v_head_dim)
+        o = mla_attention.attention(q, kv, k_pe, c.softmax_scale)
+        return self.o_proj(o.reshape(b, n, h * c.v_head_dim))
 
 
 class DeepSeekMoE(nn.Module):

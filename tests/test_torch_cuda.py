@@ -27,6 +27,7 @@ from diffusion_extensions_tpu_torch.models.projections import PointCloudProj, Pr
 from diffusion_extensions_tpu_torch.models.protnet import ProtNet
 from diffusion_extensions_tpu_torch.models.rot_predict import RotPredict
 from diffusion_extensions_tpu_torch.ops import adam_cuda, igso3_cuda, metrics, mmd_cuda
+from diffusion_extensions_tpu_torch.ops import mla_attention_cuda as mla
 from diffusion_extensions_tpu_torch.ops import moe_rows_cuda as mr
 from diffusion_extensions_tpu_torch.ops.igso3 import IGSO3xR3
 from diffusion_extensions_tpu_torch.ops.se3 import AffineT
@@ -763,7 +764,9 @@ def test_dsv2_trunk_step_replays_to_the_bits_of_eager_steps(cuda, monkeypatch):
     """Eight aircraft steps of PlaneNet with a small DeepSeek-V2 trunk (bf16,
     MLA, 8 of 16 experts held, top 4, the grouped products' dispatch)
     replayed from a CUDA graph give the weights and losses of eight eager
-    steps, and the device counters count every replayed step."""
+    steps, and the device counters count every replayed step; the
+    attention cores and the row passes ran as kernels, eagerly and at the
+    capture (the attention kernels use no atomics)."""
     from dataclasses import replace
 
     from diffusion_extensions_tpu_torch.models.deepseek_v2 import DEEPSEEK_V2_LITE
@@ -798,6 +801,9 @@ def test_dsv2_trunk_step_replays_to_the_bits_of_eager_steps(cuda, monkeypatch):
     # the row passes ran as kernels: 6 a MoE layer and step eagerly, once at capture
     assert rows[0]["ops.moe_rows.launches"] == 8 * 2 * 6
     assert rows[1]["ops.moe_rows.launches"] == 2 * 2 * 6
+    # the attention cores too: 3 a layer and step (1 forward, 2 backward)
+    assert rows[0]["ops.mla_attention.launches"] == 8 * 3 * 3
+    assert rows[1]["ops.mla_attention.launches"] == 2 * 3 * 3
 
 
 @pytest.mark.parametrize("argv,steps,k,clouds", [
@@ -1283,3 +1289,116 @@ def test_moe_rows_wrappers_refuse_what_the_kernels_cannot_take(cuda):
         mr.combine(torch.zeros(32, 16, device=cuda, dtype=torch.bfloat16), torch.zeros(4, 8, device=cuda),
                    idx, offs.cpu())
     assert obs.counter("ops.moe_rows.launches") == before
+
+
+# MLA's attention core (ops/mla_attention_cuda.py, kernel 5) at the
+# dsv2lite-aircraft-train cell's heads (16 of 128 + 64, v 128) and the small
+# trunk's (4 of 32 + 16, v 32): clouds, points, heads, (qk, rope, v); the
+# ragged N = 200 and N = 1 leave a key and a query tile part-filled
+MLA_CASES = {"cell": (64, 256, 16, 192, 64, 128), "cell_n32": (8, 32, 16, 192, 64, 128),
+             "cell_n200": (8, 200, 16, 192, 64, 128), "small_n256": (4, 256, 4, 48, 16, 32),
+             "small": (8, 32, 4, 48, 16, 32), "small_n200": (4, 200, 4, 48, 16, 32), "small_n1": (2, 1, 4, 48, 16, 32)}
+MLA_RANK = 512  # the rope slice starts here in kv_a_proj_with_mqa's rows
+
+
+def _mla_operands(cuda, dims, seed=0):
+    """Unit-normal bf16 rows as the projections write them, and dO."""
+    b, n, h, dqk, dr, dv = dims
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).bfloat16()
+
+    return dict(dims=dims, q=rnd(b, n, h * dqk), kv=rnd(b, n, h * (dqk - dr + dv)), kpe=rnd(b, n, MLA_RANK + dr),
+                grad=rnd(b, n, h, dv))
+
+
+def _mla_views(ops, dtype=torch.bfloat16, grad=True):
+    """q (B, N, H, qk) and kv (B, N, H, nope + v) viewed from their rows,
+    k_pe the rope slice: the strides ``MLA`` hands over."""
+    b, n, h, dqk, dr, dv = ops["dims"]
+    views = (ops["q"].to(dtype).view(b, n, h, dqk), ops["kv"].to(dtype).view(b, n, h, -1),
+             ops["kpe"].to(dtype)[..., MLA_RANK:])
+    return tuple(x.requires_grad_(grad) for x in views)
+
+
+def _mla_run(fn, ops, dtype=torch.bfloat16):
+    from diffusion_extensions_tpu_torch.models.deepseek_v2 import DEEPSEEK_V2_LITE
+
+    q, kv, k_pe = _mla_views(ops, dtype)
+    o = fn(q, kv, k_pe, DEEPSEEK_V2_LITE.softmax_scale)
+    dq, dkv, dk_pe = torch.autograd.grad(o, [q, kv, k_pe], ops["grad"].to(dtype))
+    return {"o": o.detach(), "dq": dq, "dkv": dkv, "dk_pe": dk_pe}
+
+
+@pytest.mark.parametrize("case", list(MLA_CASES))
+def test_mla_attention_kernels_match_plain_version(cuda, case):
+    """Forward and backward through the wrapper against the plain version on
+    the card (autograd, same bf16 inputs): every output within its gate
+    (``mla_attention_cuda.GATES``), finite, in the inputs' shapes and dtype,
+    and, past one point, no further from a float64 evaluation than the
+    plain version is (norm of the difference; the kernels keep the logits
+    in float32).  Three launches."""
+    ops = _mla_operands(cuda, MLA_CASES[case])
+    before = obs.counter("ops.mla_attention.launches")
+    got = _mla_run(mla.attention, ops)
+    torch.cuda.synchronize()
+    assert obs.counter("ops.mla_attention.launches") == before + 3
+    want = _mla_run(mla.attention_ref, ops)
+    exact = _mla_run(mla.attention_ref, ops, torch.float64)
+    for key, (rtol, atol) in mla.GATES.items():
+        a, b, e = got[key], want[key], exact[key]
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, key
+        assert torch.isfinite(a).all(), key
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol, msg=key)
+        # with one point the softmax's gradient is 0: the plain version
+        # subtracts equal numbers, the kernels D and dP summed in two orders
+        if ops["dims"][1] > 1:
+            err = float(torch.linalg.vector_norm(a.double() - e))
+            assert err <= float(torch.linalg.vector_norm(b.double() - e)), key
+
+
+def test_mla_attention_kernels_repeat_their_bits(cuda):
+    """Two calls, forward and backward, give the same bits: every sum in a
+    fixed order (dq over key tiles, dk_pe over heads), no atomics."""
+    ops = _mla_operands(cuda, MLA_CASES["cell"], seed=1)
+    first, second = _mla_run(mla.attention, ops), _mla_run(mla.attention, ops)
+    for key in first:
+        assert torch.equal(first[key], second[key]), key
+
+
+def test_mla_attention_kernels_write_every_output(cuda):
+    """Launched into outputs filled with NaN (N = 200: a ragged key and
+    query tile), every element of o, the log-sum-exp, D, dq, dkv and
+    dk_pe comes back written and finite."""
+    from diffusion_extensions_tpu_torch.models.deepseek_v2 import DEEPSEEK_V2_LITE
+
+    ops = _mla_operands(cuda, MLA_CASES["cell_n200"], seed=2)
+    b, n, h, dqk, dr, dv = ops["dims"]
+    q, kv, k_pe = _mla_views(ops, grad=False)
+
+    def nans(*shape, dt=torch.bfloat16):
+        return torch.full(shape, float("nan"), device=cuda, dtype=dt)
+
+    o, lse, delta = nans(b, n, h, dv), nans(b, h, n, dt=torch.float32), nans(b, h, n, dt=torch.float32)
+    dq, dkv, dk_pe = nans(b, n, h, dqk), nans(b, n, h, dqk - dr + dv), nans(b, n, dr)
+    scale = DEEPSEEK_V2_LITE.softmax_scale
+    mla.launch_forward(q, kv, k_pe, scale, o, lse)
+    mla.launch_backward(q, kv, k_pe, scale, o, lse, ops["grad"], delta, dq, dkv, dk_pe)
+    torch.cuda.synchronize()
+    for name, x in (("o", o), ("lse", lse), ("delta", delta), ("dq", dq), ("dkv", dkv), ("dk_pe", dk_pe)):
+        assert torch.isfinite(x).all(), name
+
+
+def test_mla_attention_refuses_what_the_kernels_cannot_take(cuda):
+    """float32 operands on the card (the trunk without --bf16) and head dims
+    the kernels are not built for raise, naming --bf16 and the built dims;
+    nothing is launched."""
+    before = obs.counter("ops.mla_attention.launches")
+    ops = _mla_operands(cuda, MLA_CASES["small"])
+    with pytest.raises(TypeError, match="--bf16"):
+        mla.attention(*_mla_views(ops, torch.float32, grad=False), 0.1)
+    q, kv, k_pe = _mla_views(ops, grad=False)
+    with pytest.raises(ValueError, match="48, 16, 32"):
+        mla.attention(q[..., :32], kv, k_pe[..., :8], 0.1)
+    assert obs.counter("ops.mla_attention.launches") == before
