@@ -35,8 +35,8 @@ training (timed variants, a falling loss, ``--test``, a replayed resume,
 arms; ``jigsaw`` at the JAX package's width (timed steps, a falling loss,
 cuDNN's determinism and its cost, ``--test``); the diagnostics at their
 defaults; the Switch-MoE aircraft arm (bench.py's moe_train_e4, both
-dispatches timed); the DeepSeek-V2 trunk at the dsv2lite-aircraft-train
-cell's size (replayed steps, then one profiled call); ``--fsdp`` over a
+dispatches timed); the DeepSeek-V2 and Kimi Linear trunks at their
+cells' sizes (replayed steps, then one profiled call); ``--fsdp`` over a
 NCCL group of one; ``bench_torch --quick``; a two-point ``sweep``; and
 ``probe_protein`` on a checkpoint written here.
 
@@ -55,6 +55,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import io
+import itertools
 import json
 import math
 import os
@@ -158,18 +159,21 @@ PROTEIN = dict(dim=1024, heads=8, t_depth=12, c_depth=8, cross_depth=2, batch=16
 ADAM_SETS = {"planenet-d512": ("planenet", "optax", "f32"),
              "protnet-d1024-prod": ("protnet", "fused", "bf16")}
 ADAM_BYTES = {"f32": 28, "bf16": 20}
-# the experts layer's row passes at the dsv2lite-aircraft-train cell's shapes:
-# T tokens, top k of e experts, `held` of them held, widths d and f.
-# held_bias lowers the held experts' scores so that about 10,330 of the
-# T k rows are held, as the cell's untrained router holds them ("cell");
-# "all" holds every expert (n = T k)
-MOE_ROWS = dict(t=16_384, k=6, e=64, held=8, d=2048, f=1408, held_bias=-0.105)
+# the experts layer's row passes at the shapes of each trunk's cell
+# (dsv2lite-aircraft-train, kimilinear-aircraft-train): T tokens, top k of
+# e experts, `held` of them held, widths d and f.  held_bias lowers the
+# held experts' scores so that about as many rows are held as the cell's
+# untrained router holds ("cell": ~10,330 of 98,304; ~2,300 of 131,072,
+# the Kimi cell's held share 0.56); "all" holds every expert (n = T k)
+MOE_ROWS = {"dsv2": dict(t=16_384, k=6, e=64, held=8, d=2048, f=1408, held_bias=-0.105),
+            "kimi": dict(t=16_384, k=8, e=256, held=8, d=2304, f=1024, held_bias=-0.25)}
 MOE_ROWS_KERNELS = ("moe_gather_rows", "moe_gather_rows_backward", "moe_swiglu_rows",
                     "moe_swiglu_rows_backward", "moe_combine_rows", "moe_combine_rows_backward")
-# MLA's attention core at the dsv2lite-aircraft-train cell's shapes: clouds,
-# points, heads, head dims (qk = nope + rope, rope, v) and the rope slice's
-# offset in kv_a_proj_with_mqa's rows
-MLA = dict(b=64, n=256, h=16, dqk=192, dr=64, dv=128, rank=512)
+# MLA's attention core at the shapes of each trunk's cell: clouds, points,
+# heads, head dims (qk = nope + rope, rope, v) and the rope slice's offset
+# in kv_a_proj_with_mqa's rows
+MLA_SHAPES = {"dsv2": dict(b=64, n=256, h=16, dqk=192, dr=64, dv=128, rank=512),
+              "kimi": dict(b=16, n=1024, h=32, dqk=192, dr=64, dv=128, rank=512)}
 MLA_KERNELS = ("mla_attention_forward_kernel", "mla_attention_dq_kernel", "mla_attention_dkv_kernel")
 PROTEIN_ARGV = ["--se3", "--bf16", "--dim", "1024", "--heads", "8", "--t_depth", "12",
                 "--c_depth", "8", "--frame-pool", "--cross-depth", "2", "--rel-frame",
@@ -226,6 +230,9 @@ DP_WORLD1 = dict(steps=16, fsdp_steps=20)
 # cell's size: replayed bf16 K = 8 steps through aircraft.main, then one
 # profiled call of a fresh step
 DSV2 = dict(trunk="dsv2lite-ep8", batch=64, samples=256, params=487_890_436, steps=32, print_every=8)
+# the Kimi Linear trunk (--trunk kimilinear-ep32) at the
+# kimilinear-aircraft-train cell's size, the same way
+KIMI = dict(trunk="kimilinear-ep32", batch=16, samples=1024, params=514_730_756, steps=16, print_every=8)
 # bench_torch --quick: the headline and its eleven rows, the kernel-2
 # launches of mmd_eval (one warm-up call and three timed, three sums each)
 BENCH_MEASUREMENTS, BENCH_MMD_LAUNCHES = 12, 12
@@ -492,11 +499,10 @@ def adam_cases():
         yield f"_{name}", got, want, adam_cuda.GATES, timing
 
 
-def moe_rows_operands(case: str, seed: int = 0) -> dict:
-    """A routing drawn on the card at MOE_ROWS's shapes (``"cell"`` or
+def moe_rows_operands(c: dict, case: str, seed: int = 0) -> dict:
+    """A routing drawn on the card at the shapes ``c`` (``"cell"`` or
     ``"all"``), its plan, and each pass's inputs and incoming gradients,
     rows past n filled with NaN (the kernels never read them)."""
-    c = MOE_ROWS
     t, k, d, f = c["t"], c["k"], c["d"], c["f"]
     held = c["e"] if case == "all" else c["held"]
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -537,8 +543,8 @@ def moe_rows_bytes(o: dict) -> dict:
 
 
 def moe_rows_cases():
-    """Kernel 4's six kernels at MOE_ROWS's shapes, at ~10,330 held rows
-    (``"cell"``) and at all T k (``"all"``): each pass forward and backward
+    """Kernel 4's six kernels at each trunk's MOE_ROWS shapes, at the cell's
+    held rows (``"cell"``) and at all T k (``"all"``): each pass forward and backward
     through its wrapper against its plain version (autograd), the rows
     under n and the per-token results to the bit, the combine's gradient
     of the weights within ``grad_w_atol``; then each kernel launched into
@@ -546,8 +552,8 @@ def moe_rows_cases():
     its bytes bound, and the plain version's ms (its forward, or its
     backward alone through ``torch.autograd.grad``)."""
     mr = moe_rows_cuda
-    for case in ("cell", "all"):
-        o = moe_rows_operands(case)
+    for trunk, case in itertools.product(MOE_ROWS, ("cell", "all")):
+        o = moe_rows_operands(MOE_ROWS[trunk], case)
         n, order, inv, offs, t, k, d, f = (o[key] for key in ("n", "order", "inv", "offs", "t", "k", "d", "f"))
         res = {}
         for kernel in (True, False):
@@ -601,7 +607,7 @@ def moe_rows_cases():
                 plain_ms = time_cuda(plain, 10, warmup=2)
             bound_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
             ms = time_graph(kernel, reps=20)
-            yield f"_{name}_{case}", res[True][name], res[False][name], gates, dict(
+            yield f"_{name}_{trunk}_{case}", res[True][name], res[False][name], gates, dict(
                 n=n, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bytes=nbytes[name], bound_by="bytes",
                 roofline_pct=100.0 * bound_ms / ms)
         del o, res, runs, xs_p, h_p, y_p
@@ -624,7 +630,7 @@ def mla_attention_bound(c: dict) -> dict:
 
 
 def mla_attention_cases():
-    """Kernel 5 at MLA's shapes: the forward and the backward through the
+    """Kernel 5 at each trunk's MLA_SHAPES: the forward and the backward through the
     wrapper against the plain version (autograd, the same bf16 inputs), each
     output within the module's GATES; then the forward's launch and the
     backward's two, into outputs allocated once: device ms (a CUDA graph
@@ -632,10 +638,18 @@ def mla_attention_cases():
     time) and the plain version's ms (its forward, or its backward alone
     through ``torch.autograd.grad``)."""
     from diffusion_extensions_tpu_torch.models.deepseek_v2 import DEEPSEEK_V2_LITE
+    from diffusion_extensions_tpu_torch.models.kimi_linear import KIMI_LINEAR_48B
 
-    c, m = MLA, mla_attention_cuda
+    scales = {"dsv2": DEEPSEEK_V2_LITE.softmax_scale, "kimi": KIMI_LINEAR_48B.deepseek().softmax_scale}
+    for trunk, c in MLA_SHAPES.items():
+        yield from mla_attention_trunk_cases(trunk, c, scales[trunk])
+        torch.cuda.empty_cache()
+
+
+def mla_attention_trunk_cases(trunk: str, c: dict, scale: float):
+    """``mla_attention_cases`` at one trunk's shapes ``c``."""
+    m = mla_attention_cuda
     b, n, h, dqk, dr, dv = (c[k] for k in ("b", "n", "h", "dqk", "dr", "dv"))
-    scale = DEEPSEEK_V2_LITE.softmax_scale
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [torch.randn(b, n, w, generator=gen, device="cuda").bfloat16()
             for w in (h * dqk, h * (dqk - dr + dv), c["rank"] + dr)]
@@ -668,7 +682,7 @@ def mla_attention_cases():
         nbytes, flops = bound[name]
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_OPS_PER_S * 1e3
         ms = time_graph(kernel, reps=20)
-        yield f"_{name}", res[True][name], res[False][name], m.GATES, dict(
+        yield f"_{name}_{trunk}", res[True][name], res[False][name], m.GATES, dict(
             ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops), bytes=nbytes, flops=flops,
             bound_by="bytes" if t_bytes >= t_ops else "operations", roofline_pct=100.0 * max(t_bytes, t_ops) / ms)
 
@@ -1566,35 +1580,38 @@ def phase_moe_aircraft(tmp: str) -> None:
     aircraft_test("moe_aircraft", base + ["--bf16", "--ckpt", ckpt], PATH["batch"])
 
 
-def phase_dsv2_aircraft(tmp: str) -> None:
-    """PlaneNet with the DeepSeek-V2 trunk at the dsv2lite-aircraft-train
-    cell's size (DSV2: 1 dense + 4 MoE layers at DeepSeek-V2-Lite's widths,
-    8 of 64 experts held, 64 clouds x 256 points, bf16, fused Adam at lr
-    3e-4) through ``aircraft.main``: DSV2["steps"] replayed K = 8 steps (ms,
-    peak memory, finite losses, the expert fractions), then one call of a
-    fresh K = 8 step under the profiler: Adam's kernel once a step, the
-    row-pass kernels six a MoE layer a step, the attention kernels three a
-    layer a step, the device kernels a step and the held experts' rows from
-    the device counters."""
-    arm = ["--so3", "--trunk", DSV2["trunk"], "--bf16", "--batch", str(DSV2["batch"]), "--samples",
-           str(DSV2["samples"]), "--timesteps", "1000", "--opt-impl", "fused", "--lr", "3e-4",
+def trunk_aircraft(tmp: str, name: str, spec: dict) -> None:
+    """PlaneNet with a trunk of ``models/deepseek_v2.py`` or
+    ``models/kimi_linear.py`` at its cell's size (``spec``: the trunk, 8
+    of its routed experts held, bf16, fused Adam at lr 3e-4) through
+    ``aircraft.main``: ``spec["steps"]`` replayed K = 8 steps (ms, peak
+    memory, finite losses, the expert fractions), then one call of a fresh
+    K = 8 step under the profiler: Adam's kernel once a step, the row-pass
+    kernels six a MoE layer a step, the attention kernels three an MLA
+    layer a step, the device kernels a step, the held experts' rows and
+    their even share from the device counters, and the kernels a KDA
+    mixer's forward adds to the graph."""
+    from diffusion_extensions_tpu_torch.models.deepseek_v2 import MLA
+
+    arm = ["--so3", "--trunk", spec["trunk"], "--bf16", "--batch", str(spec["batch"]), "--samples",
+           str(spec["samples"]), "--timesteps", "1000", "--opt-impl", "fused", "--lr", "3e-4",
            "--steps-per-call", "8"]
-    ckpt, log = os.path.join(tmp, "dsv2"), os.path.join(tmp, "dsv2.jsonl")
+    ckpt, log = os.path.join(tmp, name), os.path.join(tmp, name + ".jsonl")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state, out = run_captured(aircraft.main, arm + ["--steps", str(DSV2["steps"]), "--print-every",
-                                               str(DSV2["print_every"]), "--ckpt", ckpt, "--log", log])
+    state, out = run_captured(aircraft.main, arm + ["--steps", str(spec["steps"]), "--print-every",
+                                               str(spec["print_every"]), "--ckpt", ckpt, "--log", log])
     sync()
     seconds = time.perf_counter() - t0
     rows = read_jsonl(log)
     params = sum(p.numel() for p in state.model.parameters())
-    emit("dsv2_aircraft", variant="bf16_k8", steps=DSV2["steps"], params=params,
+    emit(name, variant="bf16_k8", steps=spec["steps"], params=params,
          ms_per_step=1e3 / rows[-1]["steps_per_sec"], peak_memory_bytes=torch.cuda.max_memory_allocated(),
          losses=[r["loss"] for r in rows], test_loss=rows[-1]["test_loss"],
          expert_frac_max=rows[-1]["expert_frac_max"], seconds=seconds, launches=kernel_launches())
-    if params != DSV2["params"] or state.step != DSV2["steps"] \
+    if params != spec["params"] or state.step != spec["steps"] \
             or not all(np.isfinite(r["loss"]) for r in rows):
-        raise AssertionError(f"dsv2_aircraft: {params} parameters, step {state.step}, rows {rows}")
+        raise AssertionError(f"{name}: {params} parameters, step {state.step}, rows {rows}")
     del state
     torch.cuda.empty_cache()
 
@@ -1603,8 +1620,8 @@ def phase_dsv2_aircraft(tmp: str) -> None:
     opt = make_optimizer(model.named_parameters(), args.lr, impl="fused")
     step = make_dp_train_step(aircraft.make_loss_fn(model, process), model, opt, steps_per_call=8)
     st = TrainState(model, opt, torch.Generator(device="cuda").manual_seed(1))
-    batches = torch.from_numpy(subsample_points(synthetic_planes(8 * DSV2["batch"], seed=3), DSV2["samples"], 5))
-    batches = batches.reshape(8, DSV2["batch"], DSV2["samples"], 3).cuda()
+    batches = torch.from_numpy(subsample_points(synthetic_planes(8 * spec["batch"], seed=3), spec["samples"], 5))
+    batches = batches.reshape(8, spec["batch"], spec["samples"], 3).cuda()
     st, _ = step(st, batches)  # the eager step, the capture, the replays
     sync()
     before = obs.snapshot()["counters"]
@@ -1618,26 +1635,44 @@ def phase_dsv2_aircraft(tmp: str) -> None:
     adam_a_step = sum("adam_update" in n for n in names) / 8
     moe_rows_a_step = sum(any(f"{k}<" in n for k in MOE_ROWS_KERNELS) for n in names) / 8
     mla_a_step = sum(any(f"{k}<" in n for k in MLA_KERNELS) for n in names) / 8
-    trunk = model.encoder.cfg
+    moe = model.encoder.moe_layers()
+    routing = moe[0].cfg
+    mla_layers = sum(isinstance(layer.self_attn, MLA) for layer in model.encoder.layers)
     rows = after["moe.rows"] - before["moe.rows"]
-    moe_layers = trunk.num_hidden_layers - trunk.first_k_dense_replace
-    expected = (moe_layers * DSV2["batch"] * DSV2["samples"]
-                * trunk.num_experts_per_tok * trunk.experts_held / trunk.n_routed_experts)
-    emit("dsv2_aircraft", run="profiled_call", adam_launches_a_step=adam_a_step,
+    expected = (len(moe) * spec["batch"] * spec["samples"]
+                * routing.num_experts_per_tok * routing.experts_held / routing.n_routed_experts)
+    emit(name, run="profiled_call", adam_launches_a_step=adam_a_step,
          moe_rows_kernels_a_step=moe_rows_a_step, mla_attention_kernels_a_step=mla_a_step,
          device_ops_a_step=len(names) / 8, graph_kernels=after.get("train.graph_kernels"),
          moe_kernels_per_layer=after["moe.graph_kernels"] / after["moe.captures"],
+         kda_kernels_per_layer=after["kda.graph_kernels"] / after["kda.captures"] if after.get("kda.captures")
+         else None,
          held_rows_a_step=rows / 8, expected_rows_a_step=expected,
-         load_max_over_mean=(after["moe.rows_max"] - before["moe.rows_max"]) * trunk.experts_held / rows,
+         held_load_share=rows / (after["moe.rows_even"] - before["moe.rows_even"]),
+         load_max_over_mean=(after["moe.rows_max"] - before["moe.rows_max"]) * routing.experts_held / rows,
          loss=float(m["loss"]))
     if adam_a_step != 1 or not np.isfinite(float(m["loss"])):
-        raise AssertionError(f"dsv2_aircraft: adam_update {adam_a_step} a step, loss {float(m['loss'])}")
-    if moe_rows_a_step != 6 * moe_layers:
-        raise AssertionError(f"dsv2_aircraft: {moe_rows_a_step} row-pass kernels a step, "
-                             f"not 6 in each of {moe_layers} MoE layers")
-    if mla_a_step != 3 * trunk.num_hidden_layers:
-        raise AssertionError(f"dsv2_aircraft: {mla_a_step} attention kernels a step, "
-                             f"not 3 in each of {trunk.num_hidden_layers} layers")
+        raise AssertionError(f"{name}: adam_update {adam_a_step} a step, loss {float(m['loss'])}")
+    if moe_rows_a_step != 6 * len(moe):
+        raise AssertionError(f"{name}: {moe_rows_a_step} row-pass kernels a step, "
+                             f"not 6 in each of {len(moe)} MoE layers")
+    if mla_a_step != 3 * mla_layers:
+        raise AssertionError(f"{name}: {mla_a_step} attention kernels a step, "
+                             f"not 3 in each of {mla_layers} MLA layers")
+
+
+def phase_dsv2_aircraft(tmp: str) -> None:
+    """The DeepSeek-V2 trunk at the dsv2lite-aircraft-train cell's size
+    (DSV2: 1 dense + 4 MoE layers at DeepSeek-V2-Lite's widths, 8 of 64
+    experts held, 64 clouds x 256 points): ``trunk_aircraft``."""
+    trunk_aircraft(tmp, "dsv2_aircraft", DSV2)
+
+
+def phase_kimi_aircraft(tmp: str) -> None:
+    """The Kimi Linear trunk at the kimilinear-aircraft-train cell's size
+    (KIMI: KDA + dense, KDA, KDA, MLA, KDA over MoE at Kimi Linear's widths,
+    8 of 256 experts held, 16 clouds x 1,024 points): ``trunk_aircraft``."""
+    trunk_aircraft(tmp, "kimi_aircraft", KIMI)
 
 
 def phase_dp_world1(tmp: str) -> None:
@@ -1801,6 +1836,7 @@ PATHS = [
     ("diagnostics", phase_diagnostics, ("igso3_logpdf_score",)),
     ("moe_aircraft", phase_moe_aircraft, ("adam_update",)),
     ("dsv2_aircraft", phase_dsv2_aircraft, ("adam_update", "moe_rows", "mla_attention")),
+    ("kimi_aircraft", phase_kimi_aircraft, ("adam_update", "moe_rows", "mla_attention")),
     ("dp_world1", phase_dp_world1, ("adam_update",)),
     ("bench", phase_bench, ("adam_update", "gaussian_kernel_sum")),
     ("sweep", phase_sweep, ()),

@@ -24,7 +24,11 @@ dsv2lite-ep8`` takes DeepSeek-V2-Lite's MLA + MoE block in place of the
 encoder (``models/deepseek_v2.py``), with its width, heads, depth (1 dense
 + 4 MoE layers) and held experts (8 of 64, one rank of eight) from the
 trunk, not from ``--dim`` / ``--heads`` / ``--layers``; the loss adds
-0.001 times its balance loss.
+0.001 times its balance loss.  ``--trunk kimilinear-ep32`` takes Kimi
+Linear's hybrid block (``models/kimi_linear.py``: KDA, KDA, KDA, MLA layers
+over a dense layer and sigmoid-routed MoE FFNs, 8 of 256 experts held, one
+rank of 32) the same way; it has no balance loss, and its MoE layers' correction
+biases move after every optimizer step and are checkpointed with the weights.
 
 Launched by torchrun (or the ``DXT_*`` variables, ``parallel/launch.py``)
 the driver joins the process group: every rank loads the same global
@@ -61,7 +65,7 @@ import torch.distributed as dist
 
 from .. import resolve_device
 from ..data.shapenet import BatchLoader, ShapeNet, synthetic_planes
-from ..models.deepseek_v2 import TRUNKS
+from ..models import deepseek_v2, kimi_linear
 from ..models.planenet import PlaneNet
 from ..models.projections import PointCloudProj
 from ..ops.so3 import euler_to_rmat, haar_rotations, log_rmat_vec, rmat_to_aa, rmat_to_euler
@@ -82,6 +86,8 @@ from ..train.state import (
 SAMPLES_PER_SHAPE = 8
 PERCENTILES = (1, 5, 10, 50, 90, 95, 99)
 AUX_WEIGHT = 0.01  # the JAX driver's weight of the MoE load-balance loss
+# --trunk: the DeepSeek-V2 and Kimi Linear presets
+TRUNKS = {**deepseek_v2.TRUNKS, **kimi_linear.TRUNKS}
 
 
 def load_data(split: str, args) -> np.ndarray:
@@ -132,10 +138,11 @@ def make_loss_fn(model, process, so3: bool = True, aux_weight: float | None = No
     ``(clouds, t, noise)`` to fix the timesteps and the noise.  With MoE
     layers, ``aux_weight`` (None: the model's ``aux_weight``, else
     AUX_WEIGHT) times the mean over the loss's model calls of the
-    load-balance loss (summed over the layers) is added."""
-    moe = getattr(model, "moe_experts", 0) > 0
+    load-balance loss (summed over the layers) is added; a weight of 0
+    adds nothing."""
     if aux_weight is None:
         aux_weight = getattr(model, "aux_weight", AUX_WEIGHT)
+    moe = getattr(model, "moe_experts", 0) > 0 and aux_weight != 0
 
     def loss_fn(generator, batch):
         clouds, t, noise = batch if isinstance(batch, (tuple, list)) else (batch, None, None)
@@ -448,8 +455,8 @@ def parse_args(argv=None):
                         "(models/moe.py); 0 = dense")
     p.add_argument("--trunk", default="transformer", choices=("transformer", *TRUNKS),
                    help="the denoiser's trunk: the reference's post-norm encoder (--dim, --heads, "
-                        "--layers, --moe-experts) or a DeepSeek-V2 MLA + MoE trunk of "
-                        "models/deepseek_v2.py TRUNKS, which brings its own sizes")
+                        "--layers, --moe-experts) or a trunk of models/deepseek_v2.py or "
+                        "models/kimi_linear.py TRUNKS, which brings its own sizes")
     p.add_argument("--moe-dispatch", dest="moe_dispatch", default="scatter",
                    choices=("onehot", "scatter"),
                    help="MoE token dispatch: (T, E, C) one-hot einsums or slot scatter")

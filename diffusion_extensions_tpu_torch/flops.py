@@ -13,7 +13,8 @@ from __future__ import annotations
 from .data.pdb import RES_COUNT
 from .models.layers import DIM_FEEDFORWARD
 
-__all__ = ["planenet_flops", "dsv2_planenet_flops", "protein_flops", "moe_capacity"]
+__all__ = ["planenet_flops", "dsv2_planenet_flops", "kda_flops", "kimi_planenet_flops", "protein_flops",
+           "moe_capacity"]
 
 
 def moe_capacity(tokens: int, experts: int, capacity_factor: float = 1.25) -> int:
@@ -66,6 +67,58 @@ def dsv2_planenet_flops(cfg, batch: int, points: int) -> float:
     rows = tokens * cfg.num_experts_per_tok * cfg.experts_held / cfg.n_routed_experts
     routed = moe * 2 * 3 * d * cfg.moe_intermediate_size * rows
     return float(per_token * tokens + 2 * 3 * d * batch + routed)
+
+
+def kda_flops(points: int, heads: int, dk: int, dv: int, chunk: int) -> float:
+    """The matrix products of ``models/kimi_linear.chunk_kda`` for one
+    sequence of ``points`` (padded to whole chunks of C = ``chunk``), over
+    all heads: per chunk the intra-chunk pairs level by level (blocks of s
+    = 1, 2, ..., C/2 points: [q; k] of the upper halves against k of the
+    lower, 4 s^2 dk, and the inverse's block, 4 s^3, C / 2s blocks a
+    level), T V and T K, K^T W and K^T U, P W and P U, the output's Q S;
+    per chunk but the last the carried state's M S."""
+    nc = -(-points // chunk)
+    levels, s = 0, 1
+    while s < chunk:
+        levels += (chunk // (2 * s)) * (4 * s * s * dk + 4 * s ** 3)
+        s *= 2
+    per_chunk = levels + 2 * chunk * chunk * (dk + dv) + 2 * dk * chunk * (dk + dv) \
+        + 2 * chunk * chunk * (dk + dv) + 2 * chunk * dk * dv
+    return float(heads * (nc * per_chunk + (nc - 1) * 2 * dk * dk * dv))
+
+
+def kimi_planenet_flops(cfg, batch: int, points: int) -> float:
+    """One forward of PlaneNet with the Kimi Linear trunk ``cfg``
+    (``models/kimi_linear.KimiLinearConfig``): per token the Siren and the
+    pooling; per KDA layer and token the q / k / v projections, the
+    decay's and the output gate's low-rank pairs, beta's and W_o, and per
+    cloud its chunked recurrence (``kda_flops``); per MLA layer MLA's four
+    projections plus QK^T and AV over all points; the dense SwiGLU, or the
+    router (d x E) and the shared expert; per cloud the head.  The held
+    experts' products (``torch._grouped_mm``, counted 0 by FlopCounterMode)
+    are added over the rows a MoE layer expects, T k held / E."""
+    d, h = cfg.hidden_size, cfg.num_attention_heads
+    nope, rope, v, rank = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    kh, dk = cfg.linear_attn_num_heads, cfg.linear_attn_head_dim
+    half, tokens = d // 2, batch * points
+    per_token = 2 * (3 * half + half * half) + 2 * (d + d * d)
+    mla = 2 * (d * h * (nope + rope) + d * (rank + rope) + rank * h * (nope + v) + h * v * d)
+    mla += 2 * points * h * (nope + rope + v)
+    kda = 2 * (3 * d * kh * dk + 2 * (d * dk + dk * kh * dk) + d * kh + kh * dk * d)
+    per_cloud = 0.0
+    for i in range(cfg.num_hidden_layers):
+        if cfg.is_kda(i):
+            per_token += kda
+            per_cloud += kda_flops(points, kh, dk, dk, cfg.chunk_size)
+        else:
+            per_token += mla
+    dense = cfg.first_k_dense_replace
+    moe = cfg.num_hidden_layers - dense
+    per_token += dense * 2 * 3 * d * cfg.intermediate_size
+    per_token += moe * (2 * d * cfg.num_experts + 2 * 3 * d * cfg.moe_intermediate_size * cfg.num_shared_experts)
+    rows = tokens * cfg.num_experts_per_token * cfg.experts_held / cfg.num_experts
+    routed = moe * 2 * 3 * d * cfg.moe_intermediate_size * rows
+    return float(per_token * tokens + per_cloud * batch + 2 * 3 * d * batch + routed)
 
 
 def protein_flops(dim: int, t_depth: int, c_depth: int, batch: int, lr: int, ll: int,

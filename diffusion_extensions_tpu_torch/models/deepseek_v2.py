@@ -53,12 +53,23 @@ PyTorch chain.  A token's rows are summed in the fixed order of its k
 choices (no atomic adds), so replayed steps repeat eager steps' bits.  On
 the card the grouped products take bf16 (the trunk runs under autocast).
 
+With ``scoring_func`` "sigmoid" (DeepSeek-V3's auxiliary-loss-free
+routing, arXiv:2412.19437 sec. 2.1.2, as Kimi Linear routes) the scores are
+s = sigmoid(W_g x), the top k are those of s + b, b the layer's correction
+bias (``e_score_correction_bias``, a float32 buffer from 0), the weights
+s_i, divided by the top k's sum where ``norm_topk_prob``, times
+``routed_scaling_factor``; ``after_step()``, which the train step calls
+once after each optimizer step, moves b_i by ``bias_update_speed`` sign(c
+- c_i), c_i expert i's choices in the last forward (summed over the
+data-parallel ranks) and c their mean, on the device.  With ``aux_loss_alpha`` 0 no balance loss is computed.
+
 Spans (``obs``): ``ffn.dense`` around a dense FFN and ``moe.l<i>`` around
 the MoE FFN of layer i (router, dispatch, experts, combine, shared
 experts), each stamped at its end.  Device counters: ``moe.rows`` (the
 held experts' rows), ``moe.rows_max`` (the busiest held expert's rows),
-``moe.layer_steps`` and ``moe.experts_held``, summed over layers and
-steps.  At a capture, ``moe.graph_kernels`` counts the graph nodes the MoE
+``moe.layer_steps``, ``moe.experts_held`` and ``moe.rows_even`` (the held
+experts' even share of the choices, T k held / E rounded down), summed
+over layers and steps.  At a capture, ``moe.graph_kernels`` counts the graph nodes the MoE
 layers' forwards add and ``moe.captures`` the forwards captured.
 """
 from __future__ import annotations
@@ -67,6 +78,7 @@ import math
 from dataclasses import dataclass, replace
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
@@ -86,7 +98,9 @@ class DeepSeekV2Config:
     ``rope_factor`` and ``mscale_all_dim`` are its ``rope_scaling``'s
     ``factor`` and ``mscale_all_dim``, ``aux_loss_alpha`` the weight of the
     balance loss, ``experts_held`` / ``first_expert`` the routed experts
-    this layer holds."""
+    this layer holds; ``scoring_func``, ``norm_topk_prob`` and
+    ``bias_update_speed`` select DeepSeek-V3's sigmoid routing with a
+    correction bias (the module docstring)."""
 
     hidden_size: int = 2048
     num_attention_heads: int = 16
@@ -108,6 +122,9 @@ class DeepSeekV2Config:
     mscale_all_dim: float = 0.707
     experts_held: int = 64
     first_expert: int = 0
+    scoring_func: str = "softmax"
+    norm_topk_prob: bool = False
+    bias_update_speed: float = 0.0
 
     @property
     def softmax_scale(self) -> float:
@@ -186,11 +203,13 @@ class MLA(nn.Module):
 
 
 class DeepSeekMoE(nn.Module):
-    """The MoE FFN of layer ``index``: a softmax top-k router over all
-    ``n_routed_experts``, the held experts' SwiGLUs (``gate_up`` (held, d,
-    2 f): gate then up; ``down`` (held, f, d)) and the shared experts.
-    After a forward ``aux_loss`` is the sequence-wise balance loss (unweighted)
-    and ``expert_frac`` (E,) the share of the choices each expert got."""
+    """The MoE FFN of layer ``index``: a top-k router over all
+    ``n_routed_experts`` (softmax, or sigmoid with the correction bias), the
+    held experts' SwiGLUs (``gate_up`` (held, d, 2 f): gate then up;
+    ``down`` (held, f, d)) and the shared experts.  After a forward
+    ``aux_loss`` is the sequence-wise balance loss (unweighted; None where
+    ``aux_loss_alpha`` is 0) and ``expert_frac`` (E,) the share of the
+    choices each expert got."""
 
     def __init__(self, cfg: DeepSeekV2Config, index: int):
         super().__init__()
@@ -200,17 +219,56 @@ class DeepSeekMoE(nn.Module):
         self.gate_up = nn.Parameter(_lecun_normal_stacked((cfg.experts_held, d, 2 * f)))
         self.down = nn.Parameter(_lecun_normal_stacked((cfg.experts_held, f, d)))
         self.shared_experts = SwiGLU(d, f * cfg.n_shared_experts)
+        self.sigmoid = cfg.scoring_func == "sigmoid"
+        if cfg.scoring_func not in ("softmax", "sigmoid"):
+            raise ValueError(f"scoring_func {cfg.scoring_func!r}: softmax or sigmoid")
+        if self.sigmoid:
+            self.register_buffer("e_score_correction_bias", torch.zeros(cfg.n_routed_experts))
         self.aux_loss: torch.Tensor | None = None
         self.expert_frac: torch.Tensor | None = None
-        self._tally: torch.Tensor | None = None  # (1, held) for the device counters, made outside a capture
+        self.choice_counts: torch.Tensor | None = None  # (E,) the last forward's choices of each expert
+        self._tally: dict = {}  # (device, T) -> (1, held, rows_even) for the device counters, made outside a capture
 
     def route(self, tokens: torch.Tensor):
-        """(probs (T, E), weights (T, k), experts (T, k)): the float32
-        softmax over all experts, its top k and their scaled scores."""
+        """(scores (T, E), weights (T, k), experts (T, k)): the float32
+        softmax (or sigmoid) over all experts, its top k (by score plus the
+        correction bias) and their scaled (renormalised) scores."""
+        cfg = self.cfg
         with torch.autocast(tokens.device.type, enabled=False):
-            probs = torch.softmax(F.linear(tokens.float(), self.gate.float()), dim=-1)
-        top_w, top_i = torch.topk(probs, self.cfg.num_experts_per_tok, dim=-1)
-        return probs, top_w * self.cfg.routed_scaling_factor, top_i
+            logits = F.linear(tokens.float(), self.gate.float())
+            if self.sigmoid:
+                probs = torch.sigmoid(logits)
+                top_i = torch.topk(probs + self.e_score_correction_bias, cfg.num_experts_per_tok, dim=-1)[1]
+                top_w = probs.gather(-1, top_i)
+            else:
+                probs = torch.softmax(logits, dim=-1)
+                top_w, top_i = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+        if cfg.norm_topk_prob:
+            top_w = top_w / top_w.sum(-1, keepdim=True)
+        return probs, top_w * cfg.routed_scaling_factor, top_i
+
+    def count_choices(self, top_i: torch.Tensor) -> None:
+        """``choice_counts`` (E,) and ``expert_frac`` from the choices
+        (no atomic adds)."""
+        e = self.cfg.n_routed_experts
+        self.choice_counts = (top_i.reshape(-1, 1) == torch.arange(e, device=top_i.device)).sum(0)
+        self.expert_frac = self.choice_counts / top_i.numel()
+
+    def after_step(self, groups: tuple = ()) -> None:
+        """The correction bias's move after an optimizer step, from the
+        last forward's choices summed over ``groups`` (the process groups
+        whose ranks route other tokens through the same experts, so that
+        their biases stay equal): b_i += speed sign(c - c_i), c the mean,
+        taken as sign(T k - E c_i) in integers."""
+        if not self.sigmoid:
+            return
+        c = self.choice_counts
+        if groups:
+            c = c.clone()
+            for group in groups:
+                dist.all_reduce(c, group=group)
+        move = torch.sign(c.sum() - c * self.cfg.n_routed_experts) * self.cfg.bias_update_speed
+        self.e_score_correction_bias.add_(move)
 
     def balance_loss(self, probs: torch.Tensor, top_i: torch.Tensor, clouds: int) -> torch.Tensor:
         """mean_b sum_i f_bi P_bi over all E experts; also sets ``expert_frac``."""
@@ -227,10 +285,13 @@ class DeepSeekMoE(nn.Module):
         cfg = self.cfg
         held, dev = cfg.experts_held, tokens.device
         order, inv, counts, offs = moe_rows.dispatch_plan(top_i, cfg.first_expert, held)
-        if self._tally is None or self._tally.device != dev:
-            self._tally = torch.tensor([1, held], device=dev)
-        obs.device_count(("moe.rows", "moe.rows_max", "moe.layer_steps", "moe.experts_held"),
-                         torch.cat((counts.sum(0, keepdim=True), counts.amax(0, keepdim=True), self._tally)))
+        t, k = top_i.shape
+        tally = self._tally.get((dev, t))
+        if tally is None:
+            tally = self._tally[(dev, t)] = torch.tensor([1, held, t * k * held // cfg.n_routed_experts],
+                                                         device=dev)
+        obs.device_count(("moe.rows", "moe.rows_max", "moe.layer_steps", "moe.experts_held", "moe.rows_even"),
+                         torch.cat((counts.sum(0, keepdim=True), counts.amax(0, keepdim=True), tally)))
         dt = torch.get_autocast_dtype(dev.type) if torch.is_autocast_enabled(dev.type) else tokens.dtype
         xs = moe_rows.gather(tokens, order, inv, offs, dt)
         h = moe_rows.swiglu(torch._grouped_mm(xs, self.gate_up.to(dt), offs=offs), offs)
@@ -242,7 +303,10 @@ class DeepSeekMoE(nn.Module):
         with obs.capture_count("moe"), obs.span(self.span, flush=True):
             tokens = x.reshape(b * n, d)
             probs, top_w, top_i = self.route(tokens)
-            self.aux_loss = self.balance_loss(probs, top_i, b)
+            if self.cfg.aux_loss_alpha:
+                self.aux_loss = self.balance_loss(probs, top_i, b)
+            if self.sigmoid:
+                self.count_choices(top_i)
             return self.shared_experts(x) + self._held_experts(tokens, top_w, top_i).view(b, n, d)
 
 

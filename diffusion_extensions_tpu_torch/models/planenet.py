@@ -13,6 +13,9 @@ layers and ``expert_fracs()`` the (layers, E) token fractions.
 block (``models/deepseek_v2.py``) in place of the encoder, at the trunk's
 own width, with a final RMSNorm before the pool; its MoE layers' balance
 loss is weighted by ``aux_weight`` (the trunk's ``aux_loss_alpha``).
+``trunk=KimiLinearConfig(...)`` takes Kimi Linear's hybrid KDA / MLA +
+sigmoid-routed MoE block (``models/kimi_linear.py``) the same way (no
+balance loss: ``aux_weight`` 0).
 
 ``planenet_pp_params`` / ``planenet_pp_apply`` run the encoder stack
 through the GPipe pipeline of ``parallel/pp.py``.
@@ -23,6 +26,7 @@ import torch
 from torch import nn
 
 from .deepseek_v2 import DeepSeekV2Config, DeepSeekV2Trunk
+from .kimi_linear import KimiLinearConfig, KimiLinearTrunk
 from .layers import PoolRN, SinusoidalPosEmb, Siren, TransformerEncoder, dense, widen
 
 __all__ = ["PlaneNet", "planenet_pp_params", "planenet_pp_apply"]
@@ -34,18 +38,20 @@ class PlaneNet(nn.Module):
 
     def __init__(self, dim: int = 512, heads: int = 4, layers: int = 4,
                  bf16: bool = False, moe_experts: int = 0, moe_dispatch: str = "scatter",
-                 trunk: DeepSeekV2Config | None = None):
+                 trunk: DeepSeekV2Config | KimiLinearConfig | None = None):
         super().__init__()
         if trunk is not None:
             if moe_experts:
-                raise ValueError("the DeepSeek-V2 trunk brings its own experts: moe_experts must be 0")
-            dim, moe_experts = trunk.hidden_size, trunk.n_routed_experts
+                raise ValueError("the trunk brings its own experts: moe_experts must be 0")
+            kimi = isinstance(trunk, KimiLinearConfig)
+            dim = trunk.hidden_size
+            moe_experts = trunk.num_experts if kimi else trunk.n_routed_experts
             self.aux_weight = trunk.aux_loss_alpha
         self.bf16, self.moe_experts = bf16, moe_experts
         self.siren = Siren(3, dim // 2, scale=30)
         self.pos_emb = SinusoidalPosEmb(dim // 2)
         if trunk is not None:
-            self.encoder = DeepSeekV2Trunk(trunk)
+            self.encoder = KimiLinearTrunk(trunk) if kimi else DeepSeekV2Trunk(trunk)
         else:
             self.encoder = TransformerEncoder(dim, heads, layers, moe_experts=moe_experts,
                                               moe_dispatch=moe_dispatch)
@@ -65,7 +71,7 @@ class PlaneNet(nn.Module):
         return self.head(self.pool(h.float()))
 
     def _moe_layers(self):
-        if isinstance(self.encoder, DeepSeekV2Trunk):
+        if isinstance(self.encoder, (DeepSeekV2Trunk, KimiLinearTrunk)):
             return self.encoder.moe_layers()
         return [layer.moe for layer in self.encoder.layers if layer.moe is not None]
 

@@ -35,7 +35,7 @@ from .. import obs
 from ..train.optim import Adam, global_norm
 from ..train.state import TrainState
 
-__all__ = ["make_dp_train_step", "shard_batch", "mean_over"]
+__all__ = ["make_dp_train_step", "shard_batch", "mean_over", "after_step_hooks"]
 
 
 def slice_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -102,6 +102,13 @@ def _map(fn, batch):
     if hasattr(batch, "_fields"):
         return type(batch)(*(_map(fn, v) for v in batch))
     return type(batch)(_map(fn, v) for v in batch)
+
+
+def after_step_hooks(model: nn.Module) -> list:
+    """The ``after_step(groups)`` methods of ``model``'s submodules: state
+    updated once an optimizer step, outside the gradient, from what the
+    ranks of each process group of ``groups`` saw together."""
+    return [m.after_step for m in model.modules() if callable(getattr(m, "after_step", None))]
 
 
 class _CapturedStep:
@@ -174,6 +181,12 @@ def make_dp_train_step(
     ``per_layer_norms`` one ``grad_norm/<top-level module>`` per top-level
     child of ``model``; they are computed on the last sub-step only.
 
+    State that moves outside the gradient moves with the optimizer: after
+    each optimizer step (eager, captured and replayed alike) every
+    submodule's ``after_step(groups)``, where it has one, runs (the
+    sigmoid-routed MoE layers' correction biases, moved by the choices
+    summed over ``group``, so that the replicas' biases stay equal).
+
     ``skip_nonfinite``: a step whose loss or gradient norm is not finite
     leaves weights and optimizer state untouched while the step counter
     (and the generator) advance; the check waits for the device.
@@ -189,6 +202,8 @@ def make_dp_train_step(
     """
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
+    after_step = after_step_hooks(model)
+    groups = () if group is None else (group,)
     if group is not None:
         dist.all_reduce(torch.zeros(1, device=params[0].device), group=group)
 
@@ -228,6 +243,8 @@ def make_dp_train_step(
             if not skip_nonfinite or bool(torch.isfinite(loss) & torch.isfinite(global_norm(grads))):
                 with obs.span("train.optimizer"):
                     optimizer.step()
+                    for hook in after_step:
+                        hook(groups)
         return loss, grads
 
     def one_step(state: TrainState, batch, want_norms: bool = True):

@@ -40,7 +40,7 @@ from torch import nn
 
 from ..train.optim import Adam
 from ..train.state import TrainState
-from .dp import mean_over, slice_dim
+from .dp import after_step_hooks, mean_over, slice_dim
 from .mesh import P, axis_size
 
 __all__ = ["make_gspmd_train_step", "tp_kernel_spec", "param_spec", "batch_spec",
@@ -188,11 +188,14 @@ def make_gspmd_train_step(loss_fn: Callable, model: nn.Module, optimizer: Adam, 
     reduce-scatter with ``fsdp``) and sp; ``metrics["loss"]`` is the global
     batch's loss."""
     params = [p for p in model.parameters() if p.requires_grad]
+    after_step = after_step_hooks(model)
     dp, sp = axis_size(mesh, dp_axis), axis_size(mesh, sp_axis)
     grad_groups = [mesh.get_group(dp_axis)] if dp > 1 and not fsdp else []
     if sp > 1:
         grad_groups.append(mesh.get_group(sp_axis))
     loss_groups = [mesh.get_group(dp_axis)] if dp > 1 else []
+    # the ranks that route other tokens through the same experts
+    token_groups = tuple(loss_groups + ([mesh.get_group(sp_axis)] if sp > 1 else []))
 
     def step(state: TrainState, batch):
         optimizer.zero_grad()
@@ -201,6 +204,8 @@ def make_gspmd_train_step(loss_fn: Callable, model: nn.Module, optimizer: Adam, 
         with torch.no_grad():
             mean_over([p.grad for p in params], grad_groups)
             optimizer.step()
+            for hook in after_step:
+                hook(token_groups)
             loss = loss.detach().reshape(1).clone()
             mean_over([loss], loss_groups)
         state.step += 1

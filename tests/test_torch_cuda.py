@@ -1097,23 +1097,28 @@ def test_adam_kernel_refuses_leaves_it_cannot_take(cuda):
 
 # The experts layer's row passes (ops/moe_rows_cuda.py) at the
 # dsv2lite-aircraft-train cell's shapes: T 16,384 tokens, top 6 of 64
-# experts, 8 held, d 2,048, f 1,408.  HELD_BIAS lowers the held experts'
+# experts, 8 held, d 2,048, f 1,408; ``bias`` lowers the held experts'
 # scores so that about 10,330 of the T k = 98,304 rows are held, as the
-# cell's untrained router holds them.
-MOE_CELL = dict(t=16_384, k=6, e=64, held=8, d=2048, f=1408)
-HELD_BIAS = -0.105
+# cell's untrained router holds them.  MOE_KIMI: the
+# kimilinear-aircraft-train cell's, top 8 (MAX_K) of 256 experts, 8 held,
+# d 2,304, f 1,024, about 2,300 of the 131,072 rows held (the cell's held
+# share, ~0.56 of the even 4,096).
+MOE_CELL = dict(t=16_384, k=6, e=64, held=8, d=2048, f=1408, bias=-0.105)
+MOE_KIMI = dict(t=16_384, k=8, e=256, held=8, d=2304, f=1024, bias=-0.25)
 
 
-def _moe_plan(cuda, case, seed=0, t=MOE_CELL["t"], k=MOE_CELL["k"], e=MOE_CELL["e"]):
-    """(order, inv, offs, held_mask (T, k)) of a routing drawn on the card:
-    ``"cell"`` ~10.5% of the choices held, token 0 holding all its k
-    choices and token 1 none; ``"none"`` no choice held (n = 0); ``"all"``
-    every expert held (n = T k, as with experts_held = n_routed_experts)."""
-    held = e if case == "all" else MOE_CELL["held"]
+def _moe_plan(cuda, case, seed=0, c=MOE_CELL):
+    """(order, inv, offs, held_mask (T, k)) of a routing drawn on the card
+    at the shapes ``c``: ``"cell"`` the cell's share of the choices held,
+    token 0 holding all its k choices and token 1 none; ``"none"`` no
+    choice held (n = 0); ``"all"`` every expert held (n = T k, as with
+    experts_held = n_routed_experts)."""
+    t, k, e = c["t"], c["k"], c["e"]
+    held = e if case == "all" else c["held"]
     gen = torch.Generator(device=cuda).manual_seed(seed)
     scores = torch.randn(t, e, generator=gen, device=cuda)
     if case == "cell":
-        scores[:, :held] += HELD_BIAS
+        scores[:, :held] += c["bias"]
         scores[0, :held] += 100.0
         scores[1, :held] -= 100.0
     elif case == "none":
@@ -1128,11 +1133,13 @@ def _nan_past(x, n):
     return x
 
 
-def _moe_operands(cuda, case, seed=0, dtype=torch.bfloat16, t=MOE_CELL["t"], k=MOE_CELL["k"],
-                  d=MOE_CELL["d"], f=MOE_CELL["f"]):
-    """The routing, its n, and every pass's inputs and incoming gradients,
-    rows past n filled with NaN."""
-    order, inv, offs, mine = _moe_plan(cuda, case, seed, t=t, k=k)
+def _moe_operands(cuda, case, seed=0, dtype=torch.bfloat16, c=MOE_CELL, **shapes):
+    """The routing at the shapes ``c`` (with ``shapes`` in place of its
+    own), its n, and every pass's inputs and incoming gradients, rows past
+    n filled with NaN."""
+    c = dict(c, **shapes)
+    t, k, d, f = c["t"], c["k"], c["d"], c["f"]
+    order, inv, offs, mine = _moe_plan(cuda, case, seed, c)
     n = int(offs[-1])
     gen = torch.Generator(device=cuda).manual_seed(seed + 1)
     r = t * k
@@ -1151,17 +1158,19 @@ def _grads(out, inputs, grad):
     return torch.autograd.grad(out, inputs, grad)
 
 
-@pytest.mark.parametrize("case", ["cell", "none", "all"])
+@pytest.mark.parametrize("case", ["cell", "none", "all", "kimi_cell", "kimi_all"])
 def test_moe_rows_kernels_match_plain_versions(cuda, case):
     """Each kernel, forward and backward, against its plain version on the
-    card at the cell's shapes, rows past n NaN in every input: the rows
+    card at a cell's shapes (``kimi_``: MOE_KIMI's), rows past n NaN in
+    every input: the rows
     under n and the per-token results equal the plain version's to the bit
     (each rounds as PyTorch's kernels do, a token's k rows summed in the
     order of PyTorch's reduction), all finite.  The combine's gradient of
     the weights is a float32 dot product over d summed in another order
     than PyTorch's: within 2 d 2^-24 sum |g y| of it, the bound of two
     orders' rounding; 0 where a choice is not held.  Six launches."""
-    ops = _moe_operands(cuda, case)
+    trunk, _, case = case.rpartition("_")
+    ops = _moe_operands(cuda, case, c=MOE_KIMI if trunk == "kimi" else MOE_CELL)
     n, order, inv, offs, mine = ops["n"], ops["order"], ops["inv"], ops["offs"], ops["mine"]
     t, k = mine.shape
     assert {"cell": 0 < n < t * k // 8, "none": n == 0, "all": n == t * k}[case]
@@ -1291,26 +1300,162 @@ def test_moe_rows_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     assert obs.counter("ops.moe_rows.launches") == before
 
 
+# -- the Kimi Linear trunk (models/kimi_linear.py) --
+def _kimi_small():
+    """A small Kimi Linear trunk on the kernels' small MLA heads (4 of 32 +
+    16, v 32): d 256, KDA 4 heads of 32, 16 experts top 8 (kernel 4's
+    MAX_K), 8 held, the published layers 1-5, chunks of 64."""
+    from dataclasses import replace
+
+    from diffusion_extensions_tpu_torch.models.kimi_linear import KIMI_LINEAR_48B
+
+    return replace(KIMI_LINEAR_48B, hidden_size=256, intermediate_size=512, moe_intermediate_size=128,
+                   num_experts=16, num_experts_per_token=8, num_attention_heads=4, kv_lora_rank=64,
+                   qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32, linear_attn_num_heads=4,
+                   linear_attn_head_dim=32, num_hidden_layers=5, experts_held=8)
+
+
+def test_kda_chunks_on_the_card_follow_the_recurrence(cuda):
+    """The chunked recurrence in float32 on the card at the cell's head
+    dims (dk = dv = 128), 3 chunks and a ragged end, decays from e^-20 to
+    ~1 a point: output and input gradients within 1e-4 of the float64
+    token recurrence's scale (on the CPU)."""
+    from benchmark.reference.kimi_linear import recurrent_kda
+    from diffusion_extensions_tpu_torch.models.kimi_linear import chunk_kda
+
+    gen = torch.Generator().manual_seed(0)
+    b, h, n, d = 2, 4, 170, 128
+    q = torch.nn.functional.normalize(torch.randn(b, h, n, d, generator=gen, dtype=torch.float64), dim=-1) * d ** -0.5
+    k = torch.nn.functional.normalize(torch.randn(b, h, n, d, generator=gen, dtype=torch.float64), dim=-1)
+    v = torch.randn(b, h, n, d, generator=gen, dtype=torch.float64)
+    g = -torch.exp(torch.randn(b, h, n, d, generator=gen, dtype=torch.float64) * 2 - 1)
+    beta = torch.rand(b, h, n, generator=gen, dtype=torch.float64)
+    w = torch.randn(b, h, n, d, generator=gen, dtype=torch.float64)
+    xs = [x.requires_grad_(True) for x in (q, k, v, g, beta)]
+    want = recurrent_kda(*xs)
+    want_g = torch.autograd.grad((want * w).sum(), xs)
+    card = [x.detach().float().to(cuda).requires_grad_(True) for x in xs]
+    got = chunk_kda(*card)
+    got_g = torch.autograd.grad((got * w.float().to(cuda)).sum(), card)
+    for a, r in zip((got, *got_g), (want, *want_g)):
+        assert float((a.double().cpu() - r.detach()).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+def test_kimi_trunk_on_the_card_matches_the_reference(cuda):
+    """The small trunk in bf16 on the card (kernel 5 in MLA, kernel 4 at k
+    8, KDA's chunks in float32) against the float64 reference on the same
+    weights, batch, t and noise: the loss within 2%, the readout's
+    gradients within 5% (median leaf), every gradient finite."""
+    import statistics
+
+    from benchmark.harness import weights as wts
+    from benchmark.reference import kimi_linear as ref
+    from benchmark.reference import processes as ref_proc
+    from benchmark.reference.schedule import Schedule
+
+    c = _kimi_small()
+    rc = dict(hidden_size=c.hidden_size, num_attention_heads=c.num_attention_heads,
+              qk_nope_head_dim=c.qk_nope_head_dim, qk_rope_head_dim=c.qk_rope_head_dim, v_head_dim=c.v_head_dim,
+              kv_lora_rank=c.kv_lora_rank, intermediate_size=c.intermediate_size,
+              moe_intermediate_size=c.moe_intermediate_size, num_experts=c.num_experts,
+              num_experts_per_token=c.num_experts_per_token, num_shared_experts=c.num_shared_experts,
+              first_k_dense_replace=c.first_k_dense_replace, num_hidden_layers=c.num_hidden_layers,
+              rms_norm_eps=c.rms_norm_eps, routed_scaling_factor=c.routed_scaling_factor,
+              experts_held=c.experts_held, bias_update_speed=c.bias_update_speed,
+              linear_attn_config=dict(num_heads=c.linear_attn_num_heads, head_dim=c.linear_attn_head_dim,
+                                      short_conv_kernel_size=c.short_conv_kernel_size,
+                                      kda_layers=list(c.kda_layers), full_attn_layers=list(c.full_attn_layers)))
+    w = wts.make(ref.param_spec(rc), 7, torch.device("cpu"))
+    model = PlaneNet(trunk=c, bf16=True)
+    model.load_state_dict(dict(w, **{k: torch.zeros_like(v) for k, v in model.named_buffers()}), strict=True)
+    model = model.to(cuda)
+    rng = np.random.default_rng(1)
+    clouds = torch.from_numpy(rng.standard_normal((4, 160, 3)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 100, 4))
+    noise = ProjectedSO3Diffusion(100, device="cpu").sample_noise(torch.Generator().manual_seed(3), t)
+    loss = aircraft.make_loss_fn(model, ProjectedSO3Diffusion(100, device=cuda))(
+        None, (clouds.to(cuda), t.to(cuda), noise.to(cuda)))
+    loss.backward()
+    p = {k: v.double().requires_grad_(True) for k, v in w.items()}
+    biases = [torch.zeros(c.num_experts) for _ in range(4)]
+    want = ref_proc.so3_loss(lambda x, tt: ref.forward(p, rc, x, tt, biases)[0], clouds.double(), t,
+                             noise.double(), Schedule(100, torch.device("cpu")))
+    grads = dict(zip(p, torch.autograd.grad(want, list(p.values()))))
+    assert abs(float(loss) - float(want)) <= 0.02 * abs(float(want))
+    named = dict(model.named_parameters())
+    assert all(torch.isfinite(param.grad).all() for param in named.values())
+    diffs = [float((named[k].grad.double().cpu() - g).norm() / g.norm()) for k, g in grads.items()
+             if k.startswith(("pool.", "head."))]
+    assert statistics.median(diffs) <= 0.05, diffs
+
+
+def test_kimi_trunk_step_replays_to_the_bits_of_eager_steps(cuda, monkeypatch):
+    """Eight aircraft steps of PlaneNet with the small Kimi Linear trunk
+    (bf16) in calls of K = 2 (the first sub-step eager, then one CUDA graph
+    replayed, the correction biases' move inside it) give the weights, the
+    biases and the losses of eight eager steps after every call; each bias
+    moves once a step, by -1, 0 or +1 times 0.001 an expert, and not all
+    by 0; the device counters count every step."""
+    monkeypatch.setitem(aircraft.TRUNKS, "small", _kimi_small())
+    args = aircraft.parse_args(["--so3", "--timesteps", "100", "--trunk", "small", "--bf16"])
+    batches = torch.randn(8, 8, 128, 3, generator=torch.Generator().manual_seed(0)).to(cuda)
+    runs = []
+    for k in (1, 2):
+        obs.reset()
+        model, process = aircraft.build(args, cuda)
+        opt = make_optimizer(model.named_parameters(), 1e-3, impl="fused")
+        step = make_dp_train_step(aircraft.make_loss_fn(model, process), model, opt, steps_per_call=k)
+        state = TrainState(model, opt, torch.Generator(device=cuda).manual_seed(1))
+        out = []
+        for i in range(0, 8, k):
+            state, m = step(state, batches[i] if k == 1 else batches[i:i + k])
+            out.append((m["loss"].clone(), copy.deepcopy(model.state_dict())))
+        runs.append((out, obs.snapshot()["counters"]))
+    (eager, c_eager), (replayed, c_replayed) = runs
+    for (l1, s1), (l2, s2) in zip(eager[1::2], replayed):
+        assert torch.equal(l1, l2)
+        for name, w in s1.items():
+            assert torch.equal(w, s2[name]), name
+    name = "encoder.layers.1.mlp.e_score_correction_bias"
+    prev = torch.zeros(16, device=cuda)
+    for _, s in eager:
+        moves = (s[name] - prev) / 1e-3
+        assert float((moves - moves.round()).abs().max()) < 1e-3 and float(moves.round().abs().max()) <= 1
+        prev = s[name]
+    assert float(prev.abs().max()) > 0
+    assert c_eager["moe.layer_steps"] == c_replayed["moe.layer_steps"] == 8 * 4
+    assert c_eager["moe.rows_even"] == c_replayed["moe.rows_even"] == 8 * 4 * 8 * 128 * 8 * 8 // 16
+    assert c_replayed["kda.captures"] == 4 and c_replayed["kda.graph_kernels"] > 0
+
+
 # MLA's attention core (ops/mla_attention_cuda.py, kernel 5) at the
-# dsv2lite-aircraft-train cell's heads (16 of 128 + 64, v 128) and the small
-# trunk's (4 of 32 + 16, v 32): clouds, points, heads, (qk, rope, v); the
-# ragged N = 200 and N = 1 leave a key and a query tile part-filled
+# dsv2lite-aircraft-train cell's heads (16 of 128 + 64, v 128), the
+# kimilinear-aircraft-train cell's (16 clouds of 1,024 points, 32 heads,
+# its softmax scale 192^-1/2) and the small trunk's (4 of 32 + 16, v 32):
+# clouds, points, heads, (qk, rope, v); the ragged N = 200 and N = 1
+# leave a key and a query tile part-filled
 MLA_CASES = {"cell": (64, 256, 16, 192, 64, 128), "cell_n32": (8, 32, 16, 192, 64, 128),
              "cell_n200": (8, 200, 16, 192, 64, 128), "small_n256": (4, 256, 4, 48, 16, 32),
-             "small": (8, 32, 4, 48, 16, 32), "small_n200": (4, 200, 4, 48, 16, 32), "small_n1": (2, 1, 4, 48, 16, 32)}
+             "small": (8, 32, 4, 48, 16, 32), "small_n200": (4, 200, 4, 48, 16, 32), "small_n1": (2, 1, 4, 48, 16, 32),
+             "kimi": (16, 1024, 32, 192, 64, 128)}
 MLA_RANK = 512  # the rope slice starts here in kv_a_proj_with_mqa's rows
 
 
-def _mla_operands(cuda, dims, seed=0):
-    """Unit-normal bf16 rows as the projections write them, and dO."""
+def _mla_operands(cuda, dims, seed=0, kimi=False):
+    """Unit-normal bf16 rows as the projections write them, dO, and the
+    softmax scale (DeepSeek-V2-Lite's, or with ``kimi`` Kimi Linear's)."""
+    from diffusion_extensions_tpu_torch.models.deepseek_v2 import DEEPSEEK_V2_LITE
+    from diffusion_extensions_tpu_torch.models.kimi_linear import KIMI_LINEAR_48B
+
     b, n, h, dqk, dr, dv = dims
     gen = torch.Generator(device=cuda).manual_seed(seed)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=cuda).bfloat16()
 
+    scale = (KIMI_LINEAR_48B.deepseek() if kimi else DEEPSEEK_V2_LITE).softmax_scale
     return dict(dims=dims, q=rnd(b, n, h * dqk), kv=rnd(b, n, h * (dqk - dr + dv)), kpe=rnd(b, n, MLA_RANK + dr),
-                grad=rnd(b, n, h, dv))
+                grad=rnd(b, n, h, dv), scale=scale)
 
 
 def _mla_views(ops, dtype=torch.bfloat16, grad=True):
@@ -1323,10 +1468,8 @@ def _mla_views(ops, dtype=torch.bfloat16, grad=True):
 
 
 def _mla_run(fn, ops, dtype=torch.bfloat16):
-    from diffusion_extensions_tpu_torch.models.deepseek_v2 import DEEPSEEK_V2_LITE
-
     q, kv, k_pe = _mla_views(ops, dtype)
-    o = fn(q, kv, k_pe, DEEPSEEK_V2_LITE.softmax_scale)
+    o = fn(q, kv, k_pe, ops["scale"])
     dq, dkv, dk_pe = torch.autograd.grad(o, [q, kv, k_pe], ops["grad"].to(dtype))
     return {"o": o.detach(), "dq": dq, "dkv": dkv, "dk_pe": dk_pe}
 
@@ -1339,7 +1482,7 @@ def test_mla_attention_kernels_match_plain_version(cuda, case):
     and, past one point, no further from a float64 evaluation than the
     plain version is (norm of the difference; the kernels keep the logits
     in float32).  Three launches."""
-    ops = _mla_operands(cuda, MLA_CASES[case])
+    ops = _mla_operands(cuda, MLA_CASES[case], kimi=case == "kimi")
     before = obs.counter("ops.mla_attention.launches")
     got = _mla_run(mla.attention, ops)
     torch.cuda.synchronize()

@@ -300,6 +300,56 @@ def _ep_step(dispatch):
     return run
 
 
+def _sigmoid_bias(how):
+    """Three Adam steps of a small Kimi Linear trunk (sigmoid routing, 16
+    experts top 4) on the global batch, each rank routing its half: every
+    MoE layer's correction bias after each step, with this rank's own
+    choices in that step's last forward."""
+    def run(rank, world, tmp):
+        from dataclasses import replace
+
+        from diffusion_extensions_tpu_torch.experiments import aircraft
+        from diffusion_extensions_tpu_torch.models.deepseek_v2 import DeepSeekMoE
+        from diffusion_extensions_tpu_torch.models.kimi_linear import KIMI_LINEAR_48B
+        from diffusion_extensions_tpu_torch.models.planenet import PlaneNet
+        from diffusion_extensions_tpu_torch.processes.so3 import ProjectedSO3Diffusion
+        from diffusion_extensions_tpu_torch.train.optim import make_optimizer
+        from diffusion_extensions_tpu_torch.train.state import TrainState
+
+        trunk = replace(KIMI_LINEAR_48B, hidden_size=32, intermediate_size=48, moe_intermediate_size=16,
+                        num_experts=16, num_experts_per_token=4, num_attention_heads=2, kv_lora_rank=16,
+                        qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8, linear_attn_num_heads=2,
+                        linear_attn_head_dim=8, num_hidden_layers=5, experts_held=8, chunk_size=8)
+        torch.manual_seed(0)
+        model = PlaneNet(trunk=trunk)
+        process = ProjectedSO3Diffusion(T, device="cpu")
+        opt = make_optimizer(model.named_parameters(), 1e-3)
+        if how == "dp":
+            from diffusion_extensions_tpu_torch.parallel.dp import make_dp_train_step
+
+            group = dist.group.WORLD
+            step = make_dp_train_step(aircraft.make_global_loss_fn(model, process, group), model, opt,
+                                      group=group)
+        else:
+            from diffusion_extensions_tpu_torch.parallel import make_mesh
+            from diffusion_extensions_tpu_torch.parallel.gspmd import make_gspmd_train_step
+
+            mesh = make_mesh([("dp", 2)], "cpu")
+            step = make_gspmd_train_step(aircraft.make_global_loss_fn(model, process, mesh), model, opt, mesh)
+        layers = [m for m in model.modules() if isinstance(m, DeepSeekMoE)]
+        state = TrainState(model, opt, torch.Generator().manual_seed(1))
+        rng = np.random.default_rng(7)
+        biases, counts = [], []
+        for _ in range(3):
+            data = torch.from_numpy(rng.standard_normal((BATCH, POINTS, 3)).astype(np.float32))
+            state, _ = step(state, data)
+            biases.append([m.e_score_correction_bias.clone() for m in layers])
+            counts.append([m.choice_counts.clone() for m in layers])
+        return {"biases": biases, "counts": counts, "speed": trunk.bias_update_speed,
+                "experts": trunk.num_experts}
+    return run
+
+
 L_PP, D_PP, B_PP = 8, 16, 16
 
 
@@ -413,6 +463,8 @@ SCENARIOS = {
         ("pp_planenet", _pp_planenet(0)),
         ("pp_planenet_moe", _pp_planenet(4)),
         ("driver_tp", _driver_tp),
+        ("sigmoid_bias_dp", _sigmoid_bias("dp")),
+        ("sigmoid_bias_gspmd", _sigmoid_bias("gspmd")),
     ],
     "four": [
         ("dp2_tp2", _invariance([("dp", 2), ("sp", 1), ("tp", 2)])),
@@ -648,6 +700,23 @@ def test_driver_under_a_launcher(two):
 
 
 SPEC_SHAPES = [(64, 128), (128,), (64, 30), (64, 129), (4, 64, 2048), (2048, 512), (3, 3), ()]
+
+
+@pytest.mark.parametrize("how", ["dp", "gspmd"])
+def test_sigmoid_routing_biases_stay_equal_over_replicas(two, how):
+    """The two ranks route different halves of the batch (their own
+    choices differ), yet each step moves every layer's correction bias
+    alike on both, by the sign rule over the choices summed over them."""
+    r0, r1 = (_ok(r[f"sigmoid_bias_{how}"]) for r in two)
+    want = [torch.zeros(r0["experts"]) for _ in r0["biases"][0]]
+    for b0, b1, c0, c1 in zip(r0["biases"], r1["biases"], r0["counts"], r1["counts"]):
+        assert any(not torch.equal(a, b) for a, b in zip(c0, c1))
+        for i, (x0, x1, a, b) in enumerate(zip(b0, b1, c0, c1)):
+            c = a + b
+            want[i] = want[i] + torch.sign(c.sum() - c * r0["experts"]) * r0["speed"]
+            assert torch.equal(x0, x1)
+            assert torch.equal(x0, want[i])
+    assert any(float(w.abs().max()) > 0 for w in want)
 
 
 @pytest.mark.parametrize("shape", SPEC_SHAPES)

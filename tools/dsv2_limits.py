@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""The readings that ``dsv2lite-aircraft-train``'s limits are set from, on
-the card at the cell's own size, several seeds in one process:
+"""The readings that a training cell's limits are set from, on the card at
+the cell's own size, several seeds in one process:
 
-    python tools/dsv2_limits.py --mode <mode> --seeds <n> [<n> ...]
+    python tools/dsv2_limits.py [--workload <cell>] --mode <mode> --seeds <n> [<n> ...]
 
 ``program``, ``control`` and ``fault:<half_batch|unchanged>`` are
-``benchmark/control.py``'s modes; ``routing:<top_k_minus_one|renormalised>`` plants
-a routing fault in the program's MoE layers
-(``benchmark/families/planenet_dsv2.py`` ``routing_fault``) and reads as
-``program`` does; ``flips`` counts, in the forward of each seed's first
+``benchmark/control.py``'s modes; ``routing:<name>`` plants a fault of the
+cell's family in the program, for a family that has ``routing_fault``
+(``benchmark/families/planenet_dsv2.py``: ``top_k_minus_one``,
+``renormalised``; ``planenet_kimi.py``: ``top_k_minus_one``,
+``not_renormalised``, ``bias_frozen``, ``state_not_carried``,
+``decay_dropped``), and reads as ``program`` does; ``flips`` (the
+``dsv2lite-aircraft-train`` cell only) counts, in the forward of each seed's first
 step (the cell's weights, batch and draw), the tokens whose top-6 choice
 of experts differs between the program (bf16 trunk, float32 router) and
 the float64 reference, each on its own inputs, per MoE layer, and those
@@ -88,6 +91,7 @@ def flips(seed: int, device) -> dict:
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--workload", default=CELL)
     p.add_argument("--mode", default="program")
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     args = p.parse_args()
@@ -100,8 +104,14 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("dsv2_limits: needs an NVIDIA GPU")
-    from benchmark.families import planenet_dsv2
+    from benchmark.harness import cell, files
     from benchmark.loops import train
+
+    fam = files.family(cell.load(args.workload)[1]["family"])
+    if args.mode == "flips" and args.workload != CELL:
+        raise SystemExit(f"dsv2_limits: flips reads {CELL}'s router only")
+    if args.mode.startswith("routing:") and not hasattr(fam, "routing_fault"):
+        raise SystemExit(f"dsv2_limits: {args.workload}'s family plants no routing fault")
 
     device = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -128,12 +138,12 @@ def main() -> int:
             mode, fault = args.mode, None
             if mode.startswith("routing:"):
                 mode, fault = "program", mode.split(":", 1)[1]
-            with planenet_dsv2.routing_fault(fault) if fault else contextlib.nullcontext():
-                numbers = control.readings(CELL, mode, seed, "cuda")
+            with fam.routing_fault(fault) if fault else contextlib.nullcontext():
+                numbers = control.readings(args.workload, mode, seed, "cuda")
         numbers["program_peak_gib"] = ref_peak.pop("program_gib", None)
         numbers["reference_peak_gib"] = ref_peak.pop("gib", None)
         numbers["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(json.dumps({"workload": CELL, "mode": args.mode, "seed": seed, "card": card,
+        print(json.dumps({"workload": args.workload, "mode": args.mode, "seed": seed, "card": card,
                           "seconds": time.perf_counter() - t0, **numbers}), flush=True)
         train.free(device)
     return 0

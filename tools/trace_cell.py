@@ -8,8 +8,8 @@ phases at the stamp kernels.
 
 It builds the cell's train state twice from the seed, as the benchmark's
 training loop does (``benchmark/loops/train.py`` ``build`` and
-``step_function``): first with spans off, then after ``obs.enable()``, so
-that only the second step's graph holds stamps.  After a warm call of each
+``step_function``): first after ``obs.enable()``, then with spans off
+(``obs.disable()``), so that only the first step's graph holds stamps.  After a warm call of each
 and ``--settle`` seconds of calls, it runs closed-loop windows of
 ``--window`` seconds over the cell's pool (the host at most one call
 ahead), off and on in turns (off, on, on, off, ...) for ``--rounds``
@@ -25,7 +25,11 @@ medians of the same calls (for the DeepSeek-V2 trunk's cell the forward
 is cut further, at its FFN spans: ``phases_of``); the stretch's idle time
 is split by the innermost ``dxt::`` host range over the middle of each gap
 ("outside the program" where none is).  One JSON line goes to standard
-output, the tables to standard error.  Needs an NVIDIA GPU; imports torch,
+output, the tables to standard error.  Where the spans-off state would
+not fit beside the spans-on one (the card's free memory under the first
+build's peak: kimilinear-aircraft-train, ~50 GiB), the spans-on state
+alone is timed and the cost of spans is left out (null).  Needs an NVIDIA
+GPU; imports torch,
 numpy, the port and the benchmark's harness only.
 """
 from __future__ import annotations
@@ -61,12 +65,21 @@ def phases_of(cfg: dict) -> list:
     (``planenet_dsv2``) ``model.forward`` is cut at the stamps of its
     ``ffn.dense`` and ``moe.l<i>`` spans (each stamped at both ends): the
     embedding and each layer's attention before its FFN, the FFN, and
-    after the trunk (the final norm, the pool, the head and the loss)."""
-    if cfg["family"] != "planenet_dsv2":
+    after the trunk (the final norm, the pool, the head and the loss).
+    With the Kimi Linear trunk (``planenet_kimi``) a KDA layer is cut at its
+    ``kda.l<i>`` span too: the norm before it (the embedding too in layer
+    0), the mixer, and the residual and the norm after it; an MLA layer's
+    attention lies between the FFNs' spans as in the DeepSeek-V2 trunk."""
+    if cfg["family"] not in ("planenet_dsv2", "planenet_kimi"):
         return PHASES
+    kda = set(cfg["linear_attn_config"]["kda_layers"]) if cfg["family"] == "planenet_kimi" else set()
     trunk = []
     for i in range(cfg["num_hidden_layers"]):
-        trunk.append("embedding + layer 0 attention" if i == 0 else f"layer {i} attention")
+        first = "embedding + " if i == 0 else ""
+        if i + 1 in kda:
+            trunk += [f"{first}layer {i} norm", f"kda.l{i}", f"layer {i} residual + norm"]
+        else:
+            trunk.append(f"{first}layer {i} attention")
         trunk.append("ffn.dense" if i < cfg["first_k_dense_replace"] else f"moe.l{i}")
     return PHASES[:2] + trunk + ["after the trunk"] + PHASES[3:]
 
@@ -81,6 +94,14 @@ def build(name: str, seed: int, device: torch.device):
     state, _ = step_fn(state, pool)  # the eager step, the capture, the replays
     torch.cuda.synchronize()
     return step_fn, state, pool, traffic["steps_per_call"]
+
+
+def fits_twice(device) -> bool:
+    """Whether a second build, as large at its peak as the first, fits in
+    what the card has free beside the first's state."""
+    free = torch.cuda.mem_get_info(device)[0] + torch.cuda.memory_reserved(device) \
+        - torch.cuda.memory_allocated(device)
+    return torch.cuda.max_memory_allocated(device) < free
 
 
 def window(run, seconds: float, device) -> float:
@@ -191,21 +212,28 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     phase_names = phases_of(cell.load(args.workload)[1])
-    off = build(args.workload, args.seed, device)
     obs.enable(device)
     on = build(args.workload, args.seed, device)
     capture = obs.snapshot()["counters"]
+    off = None
+    if fits_twice(device):
+        obs.disable()
+        off = build(args.workload, args.seed, device)
+        obs.enable()
     window(on, args.settle, device)
     ms = {"off": [], "on": []}
     obs.reset()
     for r in range(args.rounds):
         for side in (("off", "on") if r % 2 == 0 else ("on", "off")):
+            if side == "off" and off is None:
+                continue
             (obs.enable if side == "on" else obs.disable)()
             ms[side].append(window(on if side == "on" else off, args.window, device))
     snap = obs.snapshot()
     spans = obs.summary(snap)
     dm = spans["device_ms"]
-    off_ms, on_ms = statistics.median(ms["off"]), statistics.median(ms["on"])
+    on_ms = statistics.median(ms["on"])
+    off_ms = statistics.median(ms["off"]) if ms["off"] else None
     children = sum(dm[n] for n in CHILDREN)
     obs.reset()
     obs.enable()
@@ -225,17 +253,17 @@ def main() -> int:
             phases[name]["ring_ms_untraced"] = dm[name]
     idle = idle_by_span(dev, host)
     out = {"workload": args.workload, "seed": args.seed, "card": card, "off_ms": ms["off"], "on_ms": ms["on"],
-           "cost_pct": 100 * (on_ms / off_ms - 1),
+           "cost_pct": 100 * (on_ms / off_ms - 1) if off_ms else None,
            "paired_cost_pct": [100 * (a / b - 1) for a, b in zip(ms["on"], ms["off"])], "spans": spans,
            "children_ms": children, "step_ms": dm["train.step"],
            "children_share_of_step_pct": 100 * children / dm["train.step"],
            "step_plus_between_ms": dm["train.step"] + spans["between_steps_us"] / 1e3,
            "step_plus_between_vs_off_pct": 100 * ((dm["train.step"] + spans["between_steps_us"] / 1e3)
-                                                  / off_ms - 1),
+                                                  / off_ms - 1) if off_ms else None,
            "host_replay_us_quartiles": [q / 1e3 for q in statistics.quantiles(obs.host_ns(snap, "train.replay"), n=4)],
            "capture_counters": capture, "stretch": phases, "stretch_idle_s": idle}
     print(f"{args.workload} seed {args.seed} on {card}: ms a step off {ms['off']} on {ms['on']}, "
-          f"cost {out['cost_pct']:+.3f}%", file=sys.stderr)
+          f"cost {out['cost_pct']}%", file=sys.stderr)
     print(f"ring medians (ms): {json.dumps(dm)}; between steps {spans['between_steps_us']:.2f} us; "
           f"host us {json.dumps(spans['host_us'])}", file=sys.stderr)
     for phase in phase_names:
