@@ -95,8 +95,8 @@ from diffusion_extensions_tpu_torch.models.coordconv import STAGES, WIDTH
 from diffusion_extensions_tpu_torch.models.planenet import PlaneNet
 from diffusion_extensions_tpu_torch.models.projections import PointCloudProj, ProtProjection
 from diffusion_extensions_tpu_torch.models.protnet import ProtNet
-from diffusion_extensions_tpu_torch.ops import (_build, adam_cuda, igso3_cuda, mla_attention_cuda, mmd_cuda,
-                                                moe_rows_cuda)
+from diffusion_extensions_tpu_torch.ops import (_build, adam_cuda, igso3_cuda, kda_cuda, mla_attention_cuda,
+                                                mmd_cuda, moe_rows_cuda)
 from diffusion_extensions_tpu_torch.ops.igso3 import (
     IGSO3xR3,
     IsotropicGaussianSO3,
@@ -175,6 +175,11 @@ MOE_ROWS_KERNELS = ("moe_gather_rows", "moe_gather_rows_backward", "moe_swiglu_r
 MLA_SHAPES = {"dsv2": dict(b=64, n=256, h=16, dqk=192, dr=64, dv=128, rank=512),
               "kimi": dict(b=16, n=1024, h=32, dqk=192, dr=64, dv=128, rank=512)}
 MLA_KERNELS = ("mla_attention_forward_kernel", "mla_attention_dq_kernel", "mla_attention_dkv_kernel")
+# KDA's chunked recurrence at the kimilinear-aircraft-train cell's shape (16
+# clouds of 1,024 points, 32 heads of dk = dv = 128) and at the small
+# trunk's heads (4 of 32)
+KDA_SHAPES = {"kimi": dict(b=16, h=32, n=1024, d=128), "small": dict(b=16, h=4, n=1024, d=32)}
+KDA_KERNELS = ("kda_intra", "kda_state", "kda_state_backward", "kda_chunk_backward")
 PROTEIN_ARGV = ["--se3", "--bf16", "--dim", "1024", "--heads", "8", "--t_depth", "12",
                 "--c_depth", "8", "--frame-pool", "--cross-depth", "2", "--rel-frame",
                 "--equiv-head", "--batch", "16", "--timesteps", "1000",
@@ -384,7 +389,8 @@ def sass_counts(sass: dict) -> dict:
     out = {"gaussian_kernel_sum": "not available", "igso3_logpdf_score": "not available",
            "adam_update": sass_instructions(sass["adam_update"]),
            "moe_rows": sass_instructions(sass["moe_rows"]),
-           "mla_attention": sass_instructions(sass["mla_attention"])}
+           "mla_attention": sass_instructions(sass["mla_attention"]),
+           "kda": sass_instructions(sass["kda"])}
     mmd_fns = sass["gaussian_kernel_sum"]
     if isinstance(mmd_fns, dict):
         for name, fn in mmd_fns.items():
@@ -687,6 +693,89 @@ def mla_attention_trunk_cases(trunk: str, c: dict, scale: float):
             bound_by="bytes" if t_bytes >= t_ops else "operations", roofline_pct=100.0 * max(t_bytes, t_ops) / ms)
 
 
+def kda_operands(c: dict, seed: int = 0) -> dict:
+    """The KDA mixer's operands at the shape ``c``, as the layer hands them
+    over: q, k, v, g (B, N, H, d) rows viewed as (B, H, N, d), beta (B, N,
+    H) viewed as (B, H, N); q and k L2-normalised (q scaled by d^-1/2),
+    log-decays -exp(2 x - 1), x normal (e^-0.37 a point at the median, to
+    e^-20 and below at the tail); and the output's gradient."""
+    b, h, n, d = (c[k] for k in ("b", "h", "n", "d"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rows(*shape):
+        return torch.randn(b, n, h, *shape, generator=gen, device="cuda").transpose(1, 2)
+
+    q = torch.nn.functional.normalize(rows(d), dim=-1) * d ** -0.5
+    k = torch.nn.functional.normalize(rows(d), dim=-1)
+    g = -torch.exp(rows(d) * 2 - 1)
+    beta = torch.sigmoid(rows())
+    return dict(ins=(q, k, rows(d), g, beta), grad=rows(d))
+
+
+def kda_bound(c: dict) -> dict:
+    """(bytes, FLOPs) of the forward and of the backward at the shape ``c``:
+    float32 inputs read once and outputs written once (forward q, k, v, g,
+    beta and o; backward those inputs and dO, the five gradients), and the
+    products as ``benchmark/flops/kimi_linear.kda`` counts the chunked
+    recurrence, twice that backward (each product has two in the
+    backward)."""
+    from benchmark.flops.kimi_linear import kda
+
+    b, h, n, d = (c[k] for k in ("b", "h", "n", "d"))
+    row, one = b * h * n * d * 4, b * h * n * 4
+    flops = b * kda(n, h, d, d, kda_cuda.CHUNK)
+    return {"forward": (4 * row + one + row, flops), "backward": (5 * row + one + 4 * row + one, 2 * flops)}
+
+
+def kda_cases():
+    """Kernel 6 at each of KDA_SHAPES: the forward and the backward through
+    the wrapper against the plain version (``chunk_kda_ref``, autograd over
+    its recomputation, the same float32 inputs), each output within the
+    module's GATES; then the forward's two launches and the backward's four
+    into outputs allocated once: device ms (a CUDA graph replayed) beside the
+    bound (FLOPs at the 67 TFLOP/s of float32 FMA, or bytes, whichever is the
+    larger time) and the plain version's ms (its forward, or its backward
+    alone through ``torch.autograd.grad``)."""
+    from diffusion_extensions_tpu_torch.models.kimi_linear import chunk_kda_ref
+
+    m = kda_cuda
+    for shape, c in KDA_SHAPES.items():
+        ops = kda_operands(c)
+        res = {}
+        for kernel in (True, False):
+            ins = [x.detach().requires_grad_(True) for x in ops["ins"]]
+            o = (m.chunk_kda if kernel else chunk_kda_ref)(*ins)
+            grads = torch.autograd.grad(o, ins, ops["grad"])
+            res[kernel] = {"forward": {"o": o.detach()},
+                           "backward": dict(zip(("dq", "dk", "dv", "dg", "dbeta"), grads))}
+            del o, grads
+        ins = [x.detach() for x in ops["ins"]]
+        b, h, n, d = ins[0].shape
+        scratch = {k: torch.empty(v, device="cuda") for k, v in m.scratch_shapes(ins[0]).items()}
+        o = torch.empty(b, n, h, d, device="cuda")
+        outs = [torch.empty(b, n, h, d, device="cuda").transpose(1, 2) for _ in range(4)]
+        dbeta = torch.empty(b, n, h, device="cuda").transpose(1, 2)
+        grad_ins = [x.detach().requires_grad_(True) for x in ops["ins"]]
+        o_p = chunk_kda_ref(*grad_ins)
+        runs = {"forward": (lambda: m.launch_forward(*ins, o, scratch["w"], scratch["u"], scratch["p"]),
+                            lambda: chunk_kda_ref(*ins)),
+                "backward": (lambda: m.launch_backward(*ins, ops["grad"], scratch, *outs, dbeta),
+                             lambda: torch.autograd.grad(o_p, grad_ins, ops["grad"], retain_graph=True))}
+        bound = kda_bound(c)
+        for name, (kernel, plain) in runs.items():
+            with torch.set_grad_enabled(name == "backward"):
+                plain_ms = time_cuda(plain, 5, warmup=2)
+            nbytes, flops = bound[name]
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_OPS_PER_S * 1e3
+            ms = time_graph(kernel, reps=5, replays=4)
+            yield f"_{name}_{shape}", res[True][name], res[False][name], m.GATES, dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops), bytes=nbytes, flops=flops,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                roofline_pct=100.0 * max(t_bytes, t_ops) / ms)
+        del ops, res, scratch, o, outs, dbeta, o_p, grad_ins, runs
+        torch.cuda.empty_cache()
+
+
 # the kernels: their launch counter, wrapper module (its GATES: each
 # output's gate against the plain version), the Pallas kernel each replaces,
 # the key of its SASS summary and its timed cases, each case yielding (key
@@ -705,6 +794,8 @@ KERNELS = {
                      sass="sass_instructions", cases=moe_rows_cases),
     "mla_attention": dict(counter="ops.mla_attention.launches", module=mla_attention_cuda, replaces=None,
                           sass="sass_instructions", cases=mla_attention_cases),
+    "kda": dict(counter="ops.kda.launches", module=kda_cuda, replaces=None, sass="sass_instructions",
+                cases=kda_cases),
 }
 
 
@@ -1588,9 +1679,10 @@ def trunk_aircraft(tmp: str, name: str, spec: dict) -> None:
     memory, finite losses, the expert fractions), then one call of a fresh
     K = 8 step under the profiler: Adam's kernel once a step, the row-pass
     kernels six a MoE layer a step, the attention kernels three an MLA
-    layer a step, the device kernels a step, the held experts' rows and
-    their even share from the device counters, and the kernels a KDA
-    mixer's forward adds to the graph."""
+    layer a step, the KDA kernels six a KDA layer a step, the device
+    kernels a step, the held experts' rows and their even share from the
+    device counters, and the kernels a KDA mixer's forward adds to the
+    graph."""
     from diffusion_extensions_tpu_torch.models.deepseek_v2 import MLA
 
     arm = ["--so3", "--trunk", spec["trunk"], "--bf16", "--batch", str(spec["batch"]), "--samples",
@@ -1635,14 +1727,17 @@ def trunk_aircraft(tmp: str, name: str, spec: dict) -> None:
     adam_a_step = sum("adam_update" in n for n in names) / 8
     moe_rows_a_step = sum(any(f"{k}<" in n for k in MOE_ROWS_KERNELS) for n in names) / 8
     mla_a_step = sum(any(f"{k}<" in n for k in MLA_KERNELS) for n in names) / 8
+    kda_a_step = sum(any(f"{k}<" in n for k in KDA_KERNELS) for n in names) / 8
     moe = model.encoder.moe_layers()
     routing = moe[0].cfg
     mla_layers = sum(isinstance(layer.self_attn, MLA) for layer in model.encoder.layers)
+    kda_layers = sum(getattr(layer, "kda", False) for layer in model.encoder.layers)
     rows = after["moe.rows"] - before["moe.rows"]
     expected = (len(moe) * spec["batch"] * spec["samples"]
                 * routing.num_experts_per_tok * routing.experts_held / routing.n_routed_experts)
     emit(name, run="profiled_call", adam_launches_a_step=adam_a_step,
          moe_rows_kernels_a_step=moe_rows_a_step, mla_attention_kernels_a_step=mla_a_step,
+         kda_kernels_a_step=kda_a_step,
          device_ops_a_step=len(names) / 8, graph_kernels=after.get("train.graph_kernels"),
          moe_kernels_per_layer=after["moe.graph_kernels"] / after["moe.captures"],
          kda_kernels_per_layer=after["kda.graph_kernels"] / after["kda.captures"] if after.get("kda.captures")
@@ -1659,6 +1754,10 @@ def trunk_aircraft(tmp: str, name: str, spec: dict) -> None:
     if mla_a_step != 3 * mla_layers:
         raise AssertionError(f"{name}: {mla_a_step} attention kernels a step, "
                              f"not 3 in each of {mla_layers} MLA layers")
+    launches = sum(kda_cuda.LAUNCHES.values())
+    if kda_a_step != launches * kda_layers:
+        raise AssertionError(f"{name}: {kda_a_step} KDA kernels a step, not {launches} in each of "
+                             f"{kda_layers} KDA layers")
 
 
 def phase_dsv2_aircraft(tmp: str) -> None:
@@ -1836,7 +1935,7 @@ PATHS = [
     ("diagnostics", phase_diagnostics, ("igso3_logpdf_score",)),
     ("moe_aircraft", phase_moe_aircraft, ("adam_update",)),
     ("dsv2_aircraft", phase_dsv2_aircraft, ("adam_update", "moe_rows", "mla_attention")),
-    ("kimi_aircraft", phase_kimi_aircraft, ("adam_update", "moe_rows", "mla_attention")),
+    ("kimi_aircraft", phase_kimi_aircraft, ("adam_update", "moe_rows", "mla_attention", "kda")),
     ("dp_world1", phase_dp_world1, ("adam_update",)),
     ("bench", phase_bench, ("adam_update", "gaussian_kernel_sum")),
     ("sweep", phase_sweep, ()),

@@ -41,10 +41,13 @@ points the intra-chunk products come from cumulative log-decays G, every
 decay a difference of them, later minus earlier, so that every ``exp``
 takes a non-positive argument; between chunks the state is carried by one
 product a chunk.  Gates, G and the state are float32, and so are all its
-products (autocast is off inside).  Shapes are static, nothing is read on
-the host, so a train step holding it is captured in a CUDA graph; with
-gradients on, the chunk computation is recomputed in the backward
-(``torch.utils.checkpoint``) rather than kept.
+products (autocast is off inside).  On the card it is a hand-written kernel
+pair (``ops/kda_cuda.py``: two launches forward, four backward, reading q,
+k, v, g and beta at the strides the mixer leaves them and writing o as (B,
+N, H, dv)); on the CPU the plain version (``chunk_kda_ref``: ``_chunks``,
+recomputed in the backward under ``torch.utils.checkpoint`` rather than
+kept).  Shapes are static, nothing is read on the host, so a train step
+holding it is captured in a CUDA graph.
 
 Departures from the language model, for a point set: KDA and its
 convolutions run causally over the points in their stored order (the
@@ -69,10 +72,11 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import obs
+from ..ops import kda_cuda
 from .deepseek_v2 import MLA, DeepSeekMoE, DeepSeekV2Config, RMSNorm, SwiGLU, _linear
 
 __all__ = ["KimiLinearConfig", "KIMI_LINEAR_48B", "TRUNKS", "ShortConv", "KimiDeltaAttention", "chunk_kda",
-           "KimiLinearLayer", "KimiLinearTrunk"]
+           "chunk_kda_ref", "KimiLinearLayer", "KimiLinearTrunk"]
 
 L2_EPS = 1e-6  # FLA's l2norm
 
@@ -239,17 +243,28 @@ def _chunks(q, k, v, g, beta, chunk: int):
     return o.reshape(b, h, nc * chunk, dv)[:, :, :n]
 
 
-def chunk_kda(q, k, v, g, beta, chunk: int = 64) -> torch.Tensor:
-    """The gated delta rule over (B, H, N, dk) q, k, g, (B, H, N, dv) v and
-    (B, H, N) beta, in chunks of ``chunk`` (a power of two) points, every
-    operand and product in float32: o (B, H, N, dv), o_t = S_t^T q_t of the
-    recurrence in the module docstring from S_0 = 0.  With gradients on, the
+def chunk_kda_ref(q, k, v, g, beta, chunk: int = 64) -> torch.Tensor:
+    """The plain version of ``chunk_kda``, as PyTorch ops: every operand and
+    product in float32 (or float64, given float64); with gradients on, the
     chunk work is recomputed in the backward."""
     with torch.autocast(q.device.type, enabled=False):
         args = tuple(x.float() for x in (q, k, v, g, beta))
         if torch.is_grad_enabled() and any(x.requires_grad for x in args):
             return checkpoint(_chunks, *args, chunk, use_reentrant=False, preserve_rng_state=False)
         return _chunks(*args, chunk)
+
+
+def chunk_kda(q, k, v, g, beta, chunk: int = 64) -> torch.Tensor:
+    """The gated delta rule over (B, H, N, dk) q, k, g, (B, H, N, dv) v and
+    (B, H, N) beta, in chunks of ``chunk`` (a power of two) points, every
+    operand and product in float32: o (B, H, N, dv), o_t = S_t^T q_t of the
+    recurrence in the module docstring from S_0 = 0.  CPU tensors take the
+    plain version (``chunk_kda_ref``); CUDA tensors the hand-written kernels
+    (``ops/kda_cuda.py``: float32, dk = dv of 128 or 32, chunks of 64), or
+    raise."""
+    if q.device.type == "cpu":
+        return chunk_kda_ref(q, k, v, g, beta, chunk)
+    return kda_cuda.chunk_kda(q, k, v, g, beta, chunk)
 
 
 def _l2norm(x: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,7 @@ from diffusion_extensions_tpu_torch.models.planenet import PlaneNet
 from diffusion_extensions_tpu_torch.models.projections import PointCloudProj, ProtProjection
 from diffusion_extensions_tpu_torch.models.protnet import ProtNet
 from diffusion_extensions_tpu_torch.models.rot_predict import RotPredict
-from diffusion_extensions_tpu_torch.ops import adam_cuda, igso3_cuda, metrics, mmd_cuda
+from diffusion_extensions_tpu_torch.ops import adam_cuda, igso3_cuda, kda_cuda, metrics, mmd_cuda
 from diffusion_extensions_tpu_torch.ops import mla_attention_cuda as mla
 from diffusion_extensions_tpu_torch.ops import moe_rows_cuda as mr
 from diffusion_extensions_tpu_torch.ops.igso3 import IGSO3xR3
@@ -1426,6 +1426,127 @@ def test_kimi_trunk_step_replays_to_the_bits_of_eager_steps(cuda, monkeypatch):
     assert c_eager["moe.layer_steps"] == c_replayed["moe.layer_steps"] == 8 * 4
     assert c_eager["moe.rows_even"] == c_replayed["moe.rows_even"] == 8 * 4 * 8 * 128 * 8 * 8 // 16
     assert c_replayed["kda.captures"] == 4 and c_replayed["kda.graph_kernels"] > 0
+    # kernel 6 in each of the 4 KDA layers: every eager step, and the
+    # replayed run's eager sub-step and capture
+    launches = sum(kda_cuda.LAUNCHES.values())
+    assert c_eager["ops.kda.launches"] == 8 * 4 * launches
+    assert c_replayed["ops.kda.launches"] == 2 * 4 * launches
+
+
+# KDA's chunked recurrence (ops/kda_cuda.py, kernel 6): clouds, heads,
+# points, dk = dv, log-decays.  The cell's heads over 1,024 points and a
+# ragged 170, the small trunk's over 130 and over 1 point; decays
+# -exp(2 x - 1), x normal ("cell": e^-0.37 a point at the median, below
+# e^-20 at the tail), or from e^-7 to e^-20 at every point ("strong")
+KDA_CASES = {"cell": (4, 8, 1024, 128, "cell"), "cell_n170": (2, 4, 170, 128, "cell"),
+             "small": (4, 4, 130, 32, "cell"), "small_n1": (2, 4, 1, 32, "cell"),
+             "strong_decay": (2, 4, 170, 128, "strong")}
+KDA_OUTPUTS = ("o", "dq", "dk", "dv", "dg", "dbeta")
+
+
+def _kda_operands(cuda, case, seed=0):
+    """The mixer's operands as it hands them over: q, k, v, g (B, N, H, d)
+    rows viewed as (B, H, N, d), beta (B, N, H) as (B, H, N); q and k
+    L2-normalised, q scaled by d^-1/2; and the output's gradient."""
+    b, h, n, d, decay = KDA_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rows(*shape):
+        return torch.randn(b, n, h, *shape, generator=gen, device=cuda).transpose(1, 2)
+
+    q = torch.nn.functional.normalize(rows(d), dim=-1) * d ** -0.5
+    k = torch.nn.functional.normalize(rows(d), dim=-1)
+    x = rows(d)
+    g = -torch.exp(x * 2 - 1) if decay == "cell" else -(7 + 13 * torch.sigmoid(x))
+    return (q, k, rows(d), g, torch.sigmoid(rows())), rows(d)
+
+
+def _kda_run(fn, ins, grad, dtype=torch.float32):
+    xs = [x.detach().to(dtype).requires_grad_(True) for x in ins]
+    o = fn(*xs)
+    return dict(zip(KDA_OUTPUTS, (o.detach(), *torch.autograd.grad(o, xs, grad.to(dtype)))))
+
+
+@pytest.mark.parametrize("case", list(KDA_CASES))
+def test_kda_chunk_kernels_match_plain_version(cuda, case):
+    """``chunk_kda`` on the card (six launches, forward and backward)
+    against the plain version on the card (``chunk_kda_ref``, autograd, the
+    same float32 inputs): the output and the five input gradients within
+    ``kda_cuda.GATES``, finite, in the inputs' shapes; past one chunk no
+    further from a float64 evaluation (the plain chunks in float64, equal to
+    the token recurrence to ~1e-13) than the plain version is (norm of the
+    difference)."""
+    from diffusion_extensions_tpu_torch.models import kimi_linear
+
+    ins, grad = _kda_operands(cuda, case)
+    before = obs.counter("ops.kda.launches")
+    got = _kda_run(kimi_linear.chunk_kda, ins, grad)
+    torch.cuda.synchronize()
+    assert obs.counter("ops.kda.launches") == before + sum(kda_cuda.LAUNCHES.values())
+    want = _kda_run(kimi_linear.chunk_kda_ref, ins, grad)
+    exact = _kda_run(lambda *a: kimi_linear._chunks(*a, kda_cuda.CHUNK), ins, grad, torch.float64)
+    for key in KDA_OUTPUTS:
+        a, b, e = got[key], want[key], exact[key]
+        rtol, atol = kda_cuda.GATES[key]
+        assert a.dtype == torch.float32 and a.shape == b.shape, key
+        assert torch.isfinite(a).all(), key
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol, msg=key)
+        if KDA_CASES[case][2] > kda_cuda.CHUNK:
+            err = float(torch.linalg.vector_norm(a.double() - e))
+            assert err <= float(torch.linalg.vector_norm(b.double() - e)), key
+
+
+def test_kda_chunk_kernels_repeat_their_bits(cuda):
+    """Two calls, forward and backward, give the same bits: no atomics,
+    every sum in a fixed order."""
+    from diffusion_extensions_tpu_torch.models import kimi_linear
+
+    ins, grad = _kda_operands(cuda, "cell_n170", seed=1)
+    first, second = (_kda_run(kimi_linear.chunk_kda, ins, grad) for _ in range(2))
+    for key in KDA_OUTPUTS:
+        assert torch.equal(first[key], second[key]), key
+
+
+def test_kda_chunk_kernels_write_every_output(cuda):
+    """Launched into outputs and scratch filled with NaN (170 points: a
+    ragged last chunk), every element of o, dq, dk, dv, dg and dbeta comes
+    back written and finite."""
+    ins, grad = _kda_operands(cuda, "cell_n170", seed=2)
+    b, h, n, d = ins[0].shape
+
+    def nans(*shape):
+        return torch.full(shape, float("nan"), device=cuda)
+
+    scratch = {k: nans(*v) for k, v in kda_cuda.scratch_shapes(ins[0]).items()}
+    o = nans(b, n, h, d)
+    outs = [nans(b, n, h, d).transpose(1, 2) for _ in range(4)]
+    dbeta = nans(b, n, h).transpose(1, 2)
+    kda_cuda.launch_forward(*ins, o, scratch["w"], scratch["u"], scratch["p"])
+    kda_cuda.launch_backward(*ins, grad, scratch, *outs, dbeta)
+    torch.cuda.synchronize()
+    for name, x in zip(KDA_OUTPUTS, (o, *outs, dbeta)):
+        assert torch.isfinite(x).all(), name
+
+
+def test_kda_chunk_kernels_refuse_what_the_kernels_cannot_take(cuda):
+    """float64 and bf16 operands on the card, head dims the kernels are not
+    built for, chunks other than 64 and mismatched shapes raise, naming
+    what they refuse; nothing is launched and nothing falls back."""
+    from diffusion_extensions_tpu_torch.models.kimi_linear import chunk_kda
+
+    ins, _ = _kda_operands(cuda, "small")
+    before = obs.counter("ops.kda.launches")
+    for dtype in (torch.float64, torch.bfloat16):
+        with pytest.raises(TypeError, match="float32"):
+            chunk_kda(*(x.to(dtype) for x in ins))
+    q, k, v, g, beta = ins
+    with pytest.raises(ValueError, match="head dims"):
+        chunk_kda(q[..., :16], k[..., :16], v[..., :16], g[..., :16], beta)
+    with pytest.raises(ValueError, match="chunks of 32"):
+        chunk_kda(*ins, chunk=32)
+    with pytest.raises(ValueError, match="B, H, N"):
+        chunk_kda(q, k, v, g, beta[:, :, :-1])
+    assert obs.counter("ops.kda.launches") == before
 
 
 # MLA's attention core (ops/mla_attention_cuda.py, kernel 5) at the

@@ -98,10 +98,13 @@ def build(name: str, seed: int, device: torch.device):
 
 def fits_twice(device) -> bool:
     """Whether a second build, as large at its peak as the first, fits in
-    what the card has free beside the first's state."""
-    free = torch.cuda.mem_get_info(device)[0] + torch.cuda.memory_reserved(device) \
-        - torch.cuda.memory_allocated(device)
-    return torch.cuda.max_memory_allocated(device) < free
+    what the card has free beside the first's state: the driver's free
+    memory once the allocator has handed back its cached blocks.  (A
+    captured graph's private pool stays reserved and is not free: counting
+    the allocator's reserve as free let the Kimi cell at a 44 GiB peak try
+    a second build and run out of memory.)"""
+    torch.cuda.empty_cache()
+    return torch.cuda.max_memory_allocated(device) < torch.cuda.mem_get_info(device)[0]
 
 
 def window(run, seconds: float, device) -> float:
